@@ -1,21 +1,30 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of SymED on one GPU and check it.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``.  Four phases,
+Run from the root of a checkout: ``python3 chip_smoke.py``.  Five phases,
 each raising on failure:
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
-2. build: the k-means kernel from ``src/repro_torch/kernels/csrc``;
-3. kernel against its plain PyTorch version on the card, at the shapes of
-   ``tests/test_kernels.py`` and at the service's shape (S=256 slots,
-   N=512 pieces, D=2, K=100 centers): labels and counts exact, masked
-   labels 0, sums within rtol=atol=1e-5; median times over 50 runs;
-4. end to end: ``StreamServer`` on cuda with the paper's settings serves 256
-   sessions x 2048 points in 64-point windows and closes them, once through
-   the kernel and once through the plain version; then, on 8 of those
-   sessions at the same settings and on a small config, the cuda kernel
-   path against the CPU port (which the CPU tests hold to the JAX
-   reference).
+2. build: the k-means and DTW kernels from ``src/repro_torch/kernels/csrc``,
+   one ``nvcc`` each, started together;
+3. the k-means kernel against its plain PyTorch version on the card, at the
+   shapes of ``tests/test_kernels.py`` and at the service's shape (S=256
+   slots, N=512 pieces, D=2, K=100 centers): labels and counts exact,
+   masked labels 0, sums within rtol=atol=1e-5; median times over 50 runs;
+4. the DTW kernel against its plain version, bitwise, at the shapes of
+   ``tests/test_kernels.py``, at a length whose diagonals need the global
+   scratch (B=2, N=20000) and at the monitor's shape (B=256 sessions,
+   N=2048 points, full and at band 64); device time from a CUDA graph;
+5. end to end: ``StreamServer`` on cuda with the paper's settings serves 256
+   sessions x 2048 points in 64-point windows with the online DTW monitor
+   every 8 windows, and closes them, through the k-means kernel; every 16th
+   of those sessions again through its plain version (16 sessions, to keep
+   the call short); 8 of the final DTW readings are recomputed with the
+   plain DTW on the card.  Then 8 of those sessions (every 32nd) served by
+   the CPU port (which the CPU tests hold to the JAX reference) against
+   the cuda run, a small config on cuda against the CPU port, and
+   ``symed_encode(reconstruct=True)`` on 4 paper-config streams, cuda
+   against the CPU port.
 
 The last two lines are a JSON summary of every kernel and
 ``{"ok": true, "device": {...}}``.
@@ -23,10 +32,14 @@ The last two lines are a JSON summary of every kernel and
 from __future__ import annotations
 
 import json
+import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
 import time
+import traceback
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -39,10 +52,25 @@ TEST_SHAPES = [(1, 16, 2, 3), (3, 50, 2, 7), (2, 200, 2, 100), (1, 64, 8, 5),
                (2, 128, 128, 16), (1, 300, 2, 1)]
 MAIN_SHAPE = (256, 512, 2, 100)
 SESSIONS, POINTS, WINDOW = 256, 2048, 64
+DTW_EVERY = 8  # the monitor fires at 512, 1024, 1536 and 2048 points
+PLAIN_STRIDE = 16  # the plain k-means run serves every 16th session
+CHECK_ROWS = range(0, SESSIONS, SESSIONS // 8)   # held against the CPU port
+ENCODE_ROWS = range(1, SESSIONS, SESSIONS // 4)  # symed_encode, cuda vs CPU
+# (B, N, band): tests/test_kernels.py's DTW cases, a pair whose diagonals
+# overflow shared memory, and the monitor's shape
+DTW_SHAPES = [(1, 32, None), (4, 150, None), (8, 128, None), (3, 257, None),
+              (16, 64, None), (4, 200, 5), (4, 200, 20), (4, 200, 64),
+              (3, 96, 0), (2, 20000, None), (256, 2048, 64)]
+DTW_MAIN = (SESSIONS, POINTS, None)
+KERNELS = ("kmeans_assign", "dtw")
+
+
+_T0 = time.perf_counter()
 
 
 def phase(name: str) -> None:
-    print(f"[phase] {name}", flush=True)
+    print(f"[phase] {name} (at {time.perf_counter() - _T0:.1f} s)",
+          flush=True)
 
 
 def _smi() -> str:
@@ -161,19 +189,102 @@ def kernel_phase(torch, dev):
     return measured
 
 
-def _serve(torch, cfg, data, *, device, use_kernel, window, clock=None):
-    """Round-robin arrivals of every row of ``data``, then close all."""
+def _dtw_cells(b, n, band):
+    """Cells of a (B, N, N) banded DTW: |i - j| <= r, r = N when full."""
+    r = n if band is None else max(int(band), 0)
+    k = min(r, n - 1)
+    return b * (n + 2 * (k * n - k * (k + 1) // 2))
+
+
+def _dtw_bound_ms(b, n, band):
+    """Least time for a batch of DTW pairs: five f32 operations per cell in
+    the band (a subtract, a fused multiply-add, two minima) over the f32
+    peak, and
+    the bytes (x and y read once, the distances written once) over the HBM
+    rate; the larger of the two.  The 2N - 1 dependent diagonals are a
+    latency floor this does not count."""
+    t_ops = 5 * _dtw_cells(b, n, band) / PEAK_F32_FLOPS * 1e3
+    t_bytes = (2 * 4 * b * n + 4 * b) / PEAK_BYTES_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _pairs(torch, b, n, seed, dev):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((b, n), generator=g).cumsum(1)
+    y = x + 0.3 * torch.randn((b, n), generator=g)
+    return x.to(dev), y.to(dev)
+
+
+def dtw_phase(torch, dev):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dtw import dtw_cuda
+
+    measured = None
+    worst = 0.0
+    for i, (b, n, band) in enumerate(DTW_SHAPES + [DTW_MAIN]):
+        x, y = _pairs(torch, b, n, 200 + i, dev)
+        got = dtw_cuda(x, y, band)
+        want = ref.dtw_batch_ref(x, y, band)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            err = float((got - want).abs().max())
+            raise AssertionError(f"dtw B,N,band={(b, n, band)}: differs from "
+                                 f"the plain version, max abs {err:.3e}")
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"dtw B,N,band={(b, n, band)}: not finite")
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        print(f"dtw B,N,band={(b, n, band)}: bitwise equal to the plain "
+              f"version (max_abs_err={err:.3e})", flush=True)
+        if (b, n, band) in (DTW_MAIN, (256, 2048, 64)):
+            kernel = lambda: dtw_cuda(x, y, band)
+            ms = _graph_ms(torch, kernel, runs=10, replays=5)
+            call_ms = _median_ms(torch, kernel, runs=10, warmup=2)
+            bound, bound_by = _dtw_bound_ms(b, n, band)
+            line = (f"dtw at B={b}, N={n}, band={band}: device time per call "
+                    f"(CUDA graph of 10, median of 5 replays) kernel "
+                    f"{ms:.5f} ms; one call launched from Python (CUDA "
+                    f"events, median of 10) {call_ms:.5f} ms; bound "
+                    f"{bound:.6f} ms ({bound_by}; {_dtw_cells(b, n, band)} "
+                    f"cells; the {2 * n - 1} dependent diagonals are a "
+                    f"latency floor the roofline does not count)")
+            if (b, n, band) == DTW_MAIN:
+                # warm from the check above; one call is about 2.5 s
+                plain_ms = _median_ms(
+                    torch, lambda: ref.dtw_batch_ref(x, y, band), runs=3,
+                    warmup=0)
+                line += (f"; plain version (CUDA events, median of 3) "
+                         f"{plain_ms:.5f} ms")
+                measured = {"ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound, "bound_by": bound_by}
+            print(line, flush=True)
+    return {"max_abs_err": worst, **measured}
+
+
+def _serve(torch, cfg, data, *, device, use_kernel, window, clock=None,
+           dtw_every=0, check_rows=(), rows=None):
+    """Round-robin arrivals of every row of ``data``, then close all.
+
+    Session ``s{r}`` carries the row ``data[i]`` for ``r = rows[i]`` (by
+    default ``r = i``), and its digitizer key is ``fold_in(key(0), r + 1)``
+    (the server's own default for the ``r``-th session opened), so a
+    session gets the same key whichever rows are served.  For each row index
+    in ``check_rows``, the final DTW reading is recomputed from the slot
+    table with the plain DTW before the close."""
     import numpy as np
 
+    from repro_torch.core import prng
     from repro_torch.launch.stream import StreamServer
 
     n_sessions, length = data.shape
     server = StreamServer(cfg, max_sessions=n_sessions, window_cap=window,
                           digitize_every_k=1, use_kernel=use_kernel,
-                          device=device, clock=clock)
-    sids = [f"s{i}" for i in range(n_sessions)]
-    for sid in sids:
-        server.open(sid)
+                          dtw_every=dtw_every, device=device, clock=clock)
+    rows = range(n_sessions) if rows is None else rows
+    sids = [f"s{r}" for r in rows]
+    base = prng.key(0)
+    for r, sid in zip(rows, sids):
+        server.open(sid, key=prng.fold_in(base, r + 1))
     labels = {sid: [] for sid in sids}
     ends = {sid: [] for sid in sids}
     t0 = time.perf_counter()
@@ -185,6 +296,8 @@ def _serve(torch, cfg, data, *, device, use_kernel, window, clock=None):
             ends[sid].append(d["endpoints"])
     t_ingest = time.perf_counter() - t0
     rounds = server.totals["steps"]
+    for row in check_rows:
+        _check_reading(torch, server, f"s{row}", data[row])
     closed = {sid: server.close(sid) for sid in sids}
     if device != "cpu":
         torch.cuda.synchronize()
@@ -199,9 +312,32 @@ def _serve(torch, cfg, data, *, device, use_kernel, window, clock=None):
                                         + [res["delta"]["endpoints"]]),
             "n_pieces": res["n_pieces"], "t_seen": res["t_seen"],
             "k": int(res["out"]["k"]),
+            "dtw": res["dtw"],
         }
     return out, {"wall": wall, "ingest": t_ingest, "rounds": rounds,
-                 "points": int(server.totals["points_in"])}
+                 "points": int(server.totals["points_in"]),
+                 "dtw_seconds": server.totals["dtw_seconds"],
+                 "dtw_readings": server.totals["dtw_readings"]}
+
+
+def _check_reading(torch, server, sid, raw):
+    """A session's latest monitor reading against the plain DTW of its
+    pieces so far, on the table's device: bitwise."""
+    from repro_torch.core.receiver import pieces_from_wire
+    from repro_torch.core.reconstruct import reconstruct_from_pieces
+    from repro_torch.kernels import ref
+
+    stats = server.session_stats(sid)
+    slot, t = stats["slot"], server._table
+    lens, incs = pieces_from_wire(t.endpoints[slot], t.steps[slot],
+                                  t.n_pieces[slot], t.t0[slot])
+    rec = reconstruct_from_pieces(lens, incs, t.n_pieces[slot], t.t0[slot],
+                                  stats["t_seen"])
+    raw = torch.from_numpy(raw[: stats["t_seen"]]).to(server.device)
+    want = float(ref.dtw_batch_ref(raw[None], rec[None], server.dtw_band)[0])
+    if stats["dtw"] != want:
+        raise AssertionError(f"{sid}: monitor reading {stats['dtw']!r} != "
+                             f"plain DTW {want!r}")
 
 
 def _compare(a, b, what):
@@ -223,51 +359,175 @@ def _compare(a, b, what):
     return agree, total
 
 
-def _against_cpu(torch, dev, cfg, data, window, what):
-    """The cuda kernel path against the CPU port on the same input: sender
-    and wire outputs bitwise, at least 99% of symbols equal."""
-    on_gpu, _ = _serve(torch, cfg, data, device=dev, use_kernel=True,
-                       window=window)
-    on_cpu, _ = _serve(torch, cfg, data, device="cpu", use_kernel=False,
-                       window=window)
+def _paper_cfg():
+    """The paper's settings (the reference's ``configs/symed_paper.py``)."""
+    from repro_torch.core.symed import SymEDConfig
+
+    return SymEDConfig(tol=0.5, alpha=0.01, scl=1.0, k_min=3, k_max=100,
+                       n_max=512, len_max=512)
+
+
+def _small_case():
+    """A config small enough that k reaches k_max, and its 4 streams."""
+    from repro_torch.core.symed import SymEDConfig
+    from repro_torch.data.synthetic import make_fleet
+
+    return (SymEDConfig(tol=0.5, alpha=0.02, scl=1.0, k_min=3, k_max=8,
+                        len_max=32, n_max=64, lloyd_iters=5),
+            make_fleet(4, 160, seed=1))
+
+
+def _encode(torch, ts, cfg, i, dev):
+    """``symed_encode(reconstruct=True)`` of one stream, as numpy."""
+    from repro_torch.core import prng
+    from repro_torch.core.symed import symed_encode
+
+    out = symed_encode(torch.from_numpy(ts).to(dev), cfg, prng.key(i, dev))
+    return {k: out[k].cpu().numpy() for k in
+            ("n_pieces", "pieces_len", "symbols", "re_pieces", "re_symbols")}
+
+
+def _cpu_reference():
+    """The CPU port's side of phase 5's cross-device checks: the 8
+    ``CHECK_ROWS`` sessions at the paper's settings with the DTW monitor,
+    the small config, and ``symed_encode`` on the ``ENCODE_ROWS``.  Runs in
+    a worker process while the card works; every input is made here from
+    the same seeds."""
+    import torch
+
+    from repro_torch.data.synthetic import make_fleet
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    cfg = _paper_cfg()
+    data = make_fleet(SESSIONS, POINTS, seed=0)
+    t0 = time.perf_counter()
+    paper, _ = _serve(torch, cfg, data[list(CHECK_ROWS)], device="cpu",
+                      use_kernel=False, window=WINDOW, dtw_every=DTW_EVERY,
+                      rows=CHECK_ROWS)
+    small_cfg, small_data = _small_case()
+    small, _ = _serve(torch, small_cfg, small_data, device="cpu",
+                      use_kernel=False, window=32)
+    encode = [_encode(torch, data[r], cfg, i, "cpu")
+              for i, r in enumerate(ENCODE_ROWS)]
+    return {"paper": paper, "small": small, "encode": encode,
+            "seconds": time.perf_counter() - t0}
+
+
+def _cpu_worker(conn) -> None:
+    """Worker process: send ``("ok", _cpu_reference())`` or the failure."""
+    try:
+        conn.send(("ok", _cpu_reference()))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def _against_cpu(on_gpu, on_cpu, what, dtw_every=0):
+    """The cuda kernel path against the CPU port on the same sessions:
+    sender and wire outputs bitwise, at least 99% of symbols equal, DTW
+    readings within 1e-4 relative."""
+    on_gpu = {sid: on_gpu[sid] for sid in on_cpu}
     agree, total = _compare(on_gpu, on_cpu, f"cuda vs cpu, {what}")
     if agree < 0.99 * total:
         raise AssertionError(f"cuda vs cpu, {what}: symbols {agree}/{total}")
     ks = [res["k"] for res in on_gpu.values()]
-    print(f"{what}, cuda kernel path vs cpu port: sender/wire bitwise for "
-          f"{len(on_gpu)} sessions, symbols {agree}/{total} agree, k up to "
-          f"{max(ks)}", flush=True)
+    line = (f"{what}, cuda kernel path vs cpu port: sender/wire bitwise for "
+            f"{len(on_gpu)} sessions, symbols {agree}/{total} agree, k up to "
+            f"{max(ks)}")
+    if dtw_every:
+        rel = 0.0
+        for sid, res in on_gpu.items():
+            a, b = res["dtw"], on_cpu[sid]["dtw"]
+            if a is None or b is None:
+                raise AssertionError(f"cuda vs cpu, {what} {sid}: no reading")
+            rel = max(rel, abs(a - b) / max(abs(b), 1e-30))
+        if rel > 1e-4:
+            raise AssertionError(f"cuda vs cpu, {what}: DTW readings differ "
+                                 f"by {rel:.3e} relative")
+        line += f", DTW readings within {rel:.3e} relative"
+    print(line, flush=True)
 
 
-def end_to_end_phase(torch, dev):
+def _encode_against_cpu(torch, dev, cfg, data, on_cpu):
+    """``symed_encode(reconstruct=True)`` on cuda against the CPU port's
+    outputs: pieces equal, ``re_pieces`` within 1e-4 relative,
+    ``re_symbols`` too where the symbols agree."""
+    import numpy as np
+
+    for i, r in enumerate(ENCODE_ROWS):
+        t0 = time.perf_counter()
+        g = _encode(torch, data[r], cfg, i, dev)
+        t_gpu = time.perf_counter() - t0
+        c = on_cpu[i]
+        rp_g, rp_c = float(g["re_pieces"]), float(c["re_pieces"])
+        rs_g, rs_c = float(g["re_symbols"]), float(c["re_symbols"])
+        if not (np.array_equal(g["n_pieces"], c["n_pieces"])
+                and np.array_equal(g["pieces_len"], c["pieces_len"])):
+            raise AssertionError(f"symed_encode stream {i}: pieces differ")
+        if abs(rp_g - rp_c) > 1e-4 * abs(rp_c):
+            raise AssertionError(f"symed_encode stream {i}: re_pieces "
+                                 f"{rp_g} vs {rp_c}")
+        same = np.array_equal(g["symbols"], c["symbols"])
+        if same and abs(rs_g - rs_c) > 1e-4 * abs(rs_c):
+            raise AssertionError(f"symed_encode stream {i}: re_symbols "
+                                 f"{rs_g} vs {rs_c}")
+        print(f"symed_encode(reconstruct=True) stream {i} (row {r}), cuda vs "
+              f"cpu: re_pieces {rp_g!r} vs {rp_c!r}; re_symbols {rs_g!r} vs "
+              f"{rs_c!r} (symbols {'equal' if same else 'differ'}); cuda "
+              f"call {t_gpu:.2f} s", flush=True)
+
+
+def end_to_end_phase(torch, dev, cpu_results):
+    """``cpu_results`` is the pipe end on which ``_cpu_worker`` sends the CPU
+    port's side of the cross-device checks."""
     import numpy as np
 
     from repro_torch.core import digitize
-    from repro_torch.core.symed import SymEDConfig
     from repro_torch.data.synthetic import make_fleet
+    from repro_torch.kernels.dtw import dtw_cuda
     from repro_torch.kernels.kmeans import kmeans_assign_cuda
     from repro_torch.launch.stream import PhaseClock
 
-    # the paper's settings (configs/symed_paper.py)
-    cfg = SymEDConfig(tol=0.5, alpha=0.01, scl=1.0, k_min=3, k_max=100,
-                      n_max=512, len_max=512)
+    cfg = _paper_cfg()
     data = make_fleet(SESSIONS, POINTS, seed=0)
     clock = PhaseClock(torch.device(dev))
 
+    check_rows = CHECK_ROWS
     kmeans_assign_cuda.launches = 0
+    dtw_cuda.launches = 0
     digitize.host_syncs = 0
     krn, t_krn = _serve(torch, cfg, data, device=dev, use_kernel=True,
-                        window=WINDOW, clock=clock)
-    launches = kmeans_assign_cuda.launches
+                        window=WINDOW, clock=clock, dtw_every=DTW_EVERY,
+                        check_rows=check_rows)
+    launches = {"kmeans_assign": kmeans_assign_cuda.launches,
+                "dtw": dtw_cuda.launches}
     syncs = digitize.host_syncs
-    if launches <= 0:
-        raise AssertionError("the service never launched the k-means kernel")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the service never launched the {name} "
+                                 "kernel")
+    readings = [res["dtw"] for res in krn.values()]
+    if any(r is None or not np.isfinite(r) for r in readings):
+        raise AssertionError("a session has no finite DTW reading")
+    print(f"DTW monitor: {launches['dtw']} kernel launches, "
+          f"{t_krn['dtw_readings']} readings, "
+          f"{t_krn['dtw_seconds']:.3f} s of {t_krn['wall']:.2f} s wall "
+          f"({100 * t_krn['dtw_seconds'] / t_krn['wall']:.2f}%), mean final "
+          f"reading {float(np.mean(readings)):.4f}; the final readings of "
+          f"rows {list(check_rows)} bitwise equal to the plain DTW on the "
+          f"card", flush=True)
 
-    plain, t_plain = _serve(torch, cfg, data, device=dev, use_kernel=False,
-                            window=WINDOW)
-    agree, total = _compare(krn, plain, "kernel vs plain")
+    plain_rows = range(0, SESSIONS, PLAIN_STRIDE)
+    plain, t_plain = _serve(torch, cfg, data[::PLAIN_STRIDE], device=dev,
+                            use_kernel=False, window=WINDOW,
+                            dtw_every=DTW_EVERY, rows=plain_rows)
+    agree, total = _compare(plain, krn, "kernel vs plain")
+    if any(krn[sid]["dtw"] != plain[sid]["dtw"] for sid in plain):
+        raise AssertionError("kernel vs plain k-means: DTW readings differ "
+                             "though the pieces are bitwise equal")
     share = agree / max(total, 1)
-    diff = sorted(sid for sid in krn
+    diff = sorted(sid for sid in plain
                   if not np.array_equal(krn[sid]["labels"],
                                         plain[sid]["labels"]))
     for sid, res in krn.items():
@@ -280,7 +540,8 @@ def end_to_end_phase(torch, dev):
     split = clock.totals
     print(f"end to end: {SESSIONS} sessions x {POINTS} points, {rounds} "
           f"rounds; "
-          f"kernel launches {launches}, host syncs {syncs} "
+          f"k-means kernel launches {launches['kmeans_assign']}, host syncs "
+          f"{syncs} "
           f"({syncs / max(rounds, 1):.1f} per round + 1 harvest copy)",
           flush=True)
     print(f"end to end (kernel): {t_krn['points'] / t_krn['wall']:.1f} "
@@ -288,23 +549,34 @@ def end_to_end_phase(torch, dev):
           f"{1e3 * t_krn['ingest'] / rounds:.2f} ms per round "
           + ", ".join(f"{k} {v / rounds:.2f} ms" for k, v in split.items()),
           flush=True)
-    print(f"end to end (plain):  {t_plain['points'] / t_plain['wall']:.1f} "
-          f"points/s over {t_plain['wall']:.2f} s, "
-          f"{1e3 * t_plain['ingest'] / rounds:.2f} ms per round", flush=True)
-    print(f"kernel vs plain: sender/wire bitwise for {SESSIONS} sessions, "
+    print(f"end to end (plain k-means, {len(plain_rows)} sessions): "
+          f"{t_plain['points'] / t_plain['wall']:.1f} points/s over "
+          f"{t_plain['wall']:.2f} s, "
+          f"{1e3 * t_plain['ingest'] / t_plain['rounds']:.2f} ms per round",
+          flush=True)
+    print(f"kernel vs plain: sender/wire bitwise for {len(plain_rows)} "
+          f"sessions, "
           f"symbols "
           f"{agree}/{total} agree ({100 * share:.3f}%), sessions differing: "
           f"{diff[:8]}{' ...' if len(diff) > 8 else ''}", flush=True)
 
     # the card against the CPU port: 8 of the sessions above, spread over
-    # the fleet's families, at the paper's widths; then a config small
-    # enough that k reaches k_max
-    _against_cpu(torch, dev, cfg, data[::SESSIONS // 8], WINDOW,
-                 "paper config, 8 sessions")
-    small = SymEDConfig(tol=0.5, alpha=0.02, scl=1.0, k_min=3, k_max=8,
-                        len_max=32, n_max=64, lloyd_iters=5)
-    _against_cpu(torch, dev, small, make_fleet(4, 160, seed=1), 32,
-                 "small config")
+    # the fleet's families, at the paper's widths (the cuda results are the
+    # run above); a config small enough that k reaches k_max; symed_encode
+    phase("end to end: cuda against the CPU port")
+    small_cfg, small_data = _small_case()
+    small, _ = _serve(torch, small_cfg, small_data, device=dev,
+                      use_kernel=True, window=32)
+    t_wait = time.perf_counter()
+    status, cpu = cpu_results.recv()
+    if status != "ok":
+        raise RuntimeError(f"the CPU port's worker failed:\n{cpu}")
+    print(f"CPU port's side ({cpu['seconds']:.1f} s in a worker process; "
+          f"waited {time.perf_counter() - t_wait:.1f} s for it)", flush=True)
+    _against_cpu(krn, cpu["paper"], "paper config, 8 sessions",
+                 dtw_every=DTW_EVERY)
+    _against_cpu(small, cpu["small"], "small config")
+    _encode_against_cpu(torch, dev, cfg, data, cpu["encode"])
     return launches
 
 
@@ -329,26 +601,55 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"nvcc: {_nvcc_version()}", flush=True)
 
+    # the CPU port's side of phase 5 runs beside the card's phases
+    ctx = multiprocessing.get_context("spawn")
+    cpu_results, send = ctx.Pipe(duplex=False)
+    worker = ctx.Process(target=_cpu_worker, args=(send,), daemon=True)
+    worker.start()
+    send.close()
+    try:
+        return _card_phases(torch, dev, smi, cpu_results)
+    finally:
+        if worker.is_alive():
+            worker.terminate()
+        worker.join(timeout=60)
+
+
+def _card_phases(torch, dev, smi, cpu_results) -> int:
     phase("build")
     from repro_torch.kernels import _build
 
+    def timed_load(name):
+        t = time.perf_counter()
+        _build.load(name)
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
-    _build.load("kmeans_assign")
-    print(f"build: kmeans_assign in {time.perf_counter() - t0:.2f} s "
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        took = dict(zip(KERNELS, pool.map(timed_load, KERNELS)))
+    print("build: " + ", ".join(f"{k} in {v:.2f} s" for k, v in took.items())
+          + f", {time.perf_counter() - t0:.2f} s in all "
           f"({_build.BUILD_ROOT})", flush=True)
 
-    phase("kernel against its plain version")
-    measured = kernel_phase(torch, dev)
+    phase("k-means kernel against its plain version")
+    measured = {"kmeans_assign": kernel_phase(torch, dev)}
+
+    phase("DTW kernel against its plain version")
+    measured["dtw"] = dtw_phase(torch, dev)
 
     phase("end to end")
-    launches = end_to_end_phase(torch, dev)
+    launches = end_to_end_phase(torch, dev, cpu_results)
 
-    row = {"name": "kmeans_assign", "route": "cuda",
-           "source": "src/repro_torch/kernels/csrc/kmeans_assign.cu",
-           "replaces": "src/repro/kernels/kmeans.py:78",
-           "launches": launches, **measured, "library_ms": None}
+    rows = [{"name": "kmeans_assign", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/kmeans_assign.cu",
+             "replaces": "src/repro/kernels/kmeans.py:78"},
+            {"name": "dtw", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/dtw.cu",
+             "replaces": "src/repro/kernels/dtw.py:71"}]
+    rows = [{**row, "launches": launches[row["name"]],
+             **measured[row["name"]], "library_ms": None} for row in rows]
     print(smi)
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,7 +15,7 @@ here (``fma32``), so emit decisions and carries are bitwise equal.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +28,7 @@ __all__ = [
     "compressor_init",
     "compressor_step",
     "compressor_finalize",
+    "compressor_scan",
     "compress_stream",
     "bridge_error_direct",
     "pieces_on_wire",
@@ -101,10 +102,15 @@ def compressor_step(
     tol: float,
     len_max: int,
     alpha: float,
+    single: bool = False,
 ) -> Tuple[CompressorState, PieceEvent]:
-    """Ingest one raw point; possibly emit a finished piece (paper Alg. 1)."""
+    """Ingest one raw point; possibly emit a finished piece (paper Alg. 1).
+
+    ``single`` selects the EWMV rounding of the reference's program for one
+    rank-1 stream (``normalize.ewm_step``).
+    """
     t = torch.as_tensor(t, dtype=torch.float32)
-    norm = ewm_step(state.norm, t, alpha)
+    norm = ewm_step(state.norm, t, alpha, single=single)
 
     v = t - state.seg_start
     h = state.npts.float()
@@ -168,31 +174,59 @@ def pieces_on_wire(events: dict, step_offset: int):
             (idx + step_offset).astype(np.int32))
 
 
+def compressor_scan(
+    ts: torch.Tensor,
+    state: Optional[CompressorState] = None,
+    *,
+    tol: float,
+    len_max: int,
+    alpha: float,
+    single: Optional[bool] = None,
+) -> Tuple[CompressorState, PieceEvent]:
+    """Run the sender over the window ``ts (..., C)`` (batched on leading
+    axes); returns the carry and the window's events, time on the last axis.
+
+    ``state=None`` opens the stream at ``ts[..., 0]`` (a no-emit event for
+    it, so events align 1:1 with stream steps).  ``single`` picks the EWMV
+    rounding (``normalize.ewm_step``).  By default it is that of the
+    reference's compiled sender: the single-stream form for a rank-1 ``ts``
+    and for a batch of two streams, the batched form for three or more.
+    """
+    ts_t = torch.as_tensor(ts, dtype=torch.float32).movedim(-1, 0)
+    if single is None:
+        single = ts_t[0].numel() <= 2
+    events = []
+    if state is None:
+        state = compressor_init(ts_t[0])
+        zf = torch.zeros_like(ts_t[0])
+        events.append(PieceEvent(torch.zeros_like(zf, dtype=torch.bool), zf,
+                                 torch.zeros_like(zf, dtype=torch.int32), zf))
+        ts_t = ts_t[1:]
+    for t in ts_t:
+        state, ev = compressor_step(state, t, tol=tol, len_max=len_max,
+                                    alpha=alpha, single=single)
+        events.append(ev)
+    return state, PieceEvent(*(torch.stack(xs, dim=-1)
+                               for xs in zip(*events)))
+
+
 def compress_stream(
     ts: torch.Tensor,
     *,
     tol: float = 0.5,
     len_max: int = 512,
     alpha: float = 0.01,
+    single: Optional[bool] = None,
 ) -> dict:
     """Run the online sender over a whole stream (batched on leading axes).
 
     Returns per-step ``emit``/``endpoint``/``length``/``inc`` shaped
     ``(..., T)``, the trailing-flush ``tail``, ``n_pieces`` and
-    ``final_state`` -- the reference's dict.
+    ``final_state`` -- the reference's dict.  ``single`` as in
+    ``compressor_scan``.
     """
-    ts = torch.as_tensor(ts, dtype=torch.float32)
-    ts_t = ts.movedim(-1, 0)
-    state = compressor_init(ts_t[0])
-    zf = torch.zeros_like(ts_t[0])
-    # a no-emit slot for t_0 so events align 1:1 with stream steps
-    events = [PieceEvent(torch.zeros_like(zf, dtype=torch.bool), zf,
-                         torch.zeros_like(zf, dtype=torch.int32), zf)]
-    for t in ts_t[1:]:
-        state, ev = compressor_step(state, t, tol=tol, len_max=len_max,
-                                    alpha=alpha)
-        events.append(ev)
-    stacked = PieceEvent(*(torch.stack(xs, dim=-1) for xs in zip(*events)))
+    state, stacked = compressor_scan(ts, tol=tol, len_max=len_max,
+                                     alpha=alpha, single=single)
     tail = compressor_finalize(state)
     n_pieces = (stacked.emit.sum(-1, dtype=torch.int32)
                 + tail.emit.to(torch.int32))

@@ -17,15 +17,27 @@ __all__ = ["EwmState", "ewm_init", "ewm_step", "ewm_scan", "standardize",
 
 
 def fma32(a, b, c) -> torch.Tensor:
-    """f32 ``a * b + c`` as a fused multiply-add computes it, nearly.
+    """f32 ``a * b + c`` with one rounding, as a fused multiply-add does.
 
-    The product is exact in f64, but the sum is rounded to f64 and then to
-    f32: two roundings, which can differ from a true fma's one by an ulp
-    when the f64 sum lands on an f32 halfway point (ROADMAP Queue C).
+    The product of two f32 values is exact in f64.  The f64 sum ``s`` is
+    rounded to odd: where TwoSum's error term ``e`` is not zero and ``s``
+    has an even last bit, ``s`` steps one f64 ulp towards ``e``.  A value
+    rounded to odd with 53 bits rounds to 24 bits exactly as the exact sum
+    would, so the final rounding to f32 is the only one that shows.
     """
-    a, b, c = (x.double() if torch.is_tensor(x) else float(x)
+    dev = next((x.device for x in (a, b, c) if torch.is_tensor(x)), None)
+    a, b, c = (x.double() if torch.is_tensor(x)
+               else torch.tensor(float(x), dtype=torch.float64, device=dev)
                for x in (a, b, c))
-    return (a * b + c).float()
+    p = a * b
+    s = p + c
+    bp = s - c
+    e = (p - bp) + (c - (s - bp))
+    even = (s.view(torch.int64) & 1) == 0
+    inexact = (e != 0) & torch.isfinite(s)
+    towards = torch.where(e > 0, float("inf"), float("-inf")).to(s.dtype)
+    s = torch.where(inexact & even, torch.nextafter(s, towards), s)
+    return s.float()
 
 
 class EwmState(NamedTuple):
@@ -41,20 +53,27 @@ def ewm_init(t0: torch.Tensor) -> EwmState:
     return EwmState(mean=t0, var=torch.ones_like(t0))
 
 
-def ewm_step(state: EwmState, t: torch.Tensor, alpha: float) -> EwmState:
+def ewm_step(state: EwmState, t: torch.Tensor, alpha: float, *,
+             single: bool = False) -> EwmState:
     """One damped-window update.
 
     EWMA_j = a*t_j + (1-a)*EWMA_{j-1}
     EWMV_j = a*(t_j - EWMA_j)^2 + (1-a)*EWMV_{j-1}
 
     ``a`` and ``1 - a`` are f32 roundings of Python doubles, as in the
-    reference; the two sums are fused where the reference's are.
+    reference; the two sums are fused where the reference's are.  The
+    reference's batched programs fuse the EWMV sum as ``fma(1-a, v, a d^2)``;
+    its program for one rank-1 stream (``single=True``) as
+    ``fma(a, d^2, (1-a) v)``.
     """
     a = float(torch.tensor(alpha, dtype=torch.float32))
     b = float(torch.tensor(1.0 - alpha, dtype=torch.float32))
     mean = fma32(a, t, b * state.mean)
     dev = t - mean
-    var = fma32(b, state.var, (dev * dev) * a)
+    if single:
+        var = fma32(a, dev * dev, b * state.var)
+    else:
+        var = fma32(b, state.var, (dev * dev) * a)
     return EwmState(mean=mean, var=var)
 
 

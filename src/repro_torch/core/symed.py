@@ -1,15 +1,20 @@
 """SymED end-to-end pipeline: sender (Alg. 1) -> wire -> receiver (Alg. 2+3).
 
-Port of ``repro.core.symed`` for the resident service's path:
+Port of ``repro.core.symed``:
 
-  * ``symed_encode`` -- one stream in one shot (without reconstruction,
-    which arrives with ``core/reconstruct``);
+  * ``symed_encode`` -- one stream in one shot; ``reconstruct=True`` (the
+    default) also rebuilds the stream from its pieces and from its symbols
+    and scores both in DTW space (``kernels.ops.dtw``: the CUDA kernel on
+    the card);
+  * ``symed_encode_chunk`` / ``symed_finish`` -- the same stream fed to the
+    sender window by window, then closed;
+  * ``symed_batch`` -- a slab of streams, one key per stream;
   * ``symed_receive_masked_chunk_table`` -- the session table ingests one
     padded, ragged window per slot: per-slot sender scan and wire
     compaction, then one table-level digitize pass whose Lloyd half-steps
     can run in the CUDA k-means kernel (``use_kernel=True``);
   * ``symed_receive_finish`` -- close a stream: flush the tail, digitize the
-    rest, emit the closing symbol-delta frame.
+    rest, emit the closing symbol-delta frame, optionally reconstruct.
 
 A ``ReceiverState`` carries every leaf with a leading slot axis when it is
 a table; ``symed_receive_masked_chunk`` / ``symed_receive_finish`` also take
@@ -23,25 +28,33 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.compress import (
     CompressorState, compress_stream, compressor_finalize, compressor_init,
-    compressor_step,
+    compressor_scan, compressor_step,
 )
 from repro_torch.core.digitize import (
-    DigitizerState, _select_lanes, digitize_pieces, digitize_span_table,
-    digitizer_delta, digitizer_init,
+    DigitizerState, _select_lanes, digitize_span_table, digitizer_delta,
+    digitizer_init,
 )
 from repro_torch.core.metrics import compression_rate_symed, drr
 from repro_torch.core.receiver import (
     append_tail, compact_chunk, compact_events, delta_frame_bytes,
     pieces_from_wire,
 )
+from repro_torch.core.reconstruct import (
+    reconstruct_from_pieces, reconstruct_from_symbols,
+)
+from repro_torch.kernels import ops
 
 __all__ = [
     "ReceiverState",
     "SymEDConfig",
     "receiver_init",
+    "symed_batch",
     "symed_encode",
+    "symed_encode_chunk",
+    "symed_finish",
     "symed_receive_finish",
     "symed_receive_masked_chunk",
     "symed_receive_masked_chunk_table",
@@ -252,14 +265,33 @@ def symed_receive_masked_chunk(ts_chunk, n_valid, cfg: SymEDConfig,
     return _unbatch1(table), _unbatch1(info)
 
 
-def symed_receive_finish(state: ReceiverState, cfg: SymEDConfig, *,
+def _score(out, ts, lens, incs, n_pieces, t0) -> None:
+    """Rebuild each stream from its pieces and from its symbols and score
+    both against ``ts (B, T)`` in DTW space (batched: one DTW launch per
+    mode on the card)."""
+    t_len = ts.shape[-1]
+    rec_p = reconstruct_from_pieces(lens, incs, n_pieces, t0, t_len)
+    rec_s = reconstruct_from_symbols(out["symbols"], out["centers"], n_pieces,
+                                     t0, t_len)
+    out["recon_pieces"] = rec_p
+    out["recon_symbols"] = rec_s
+    out["re_pieces"] = ops.dtw(ts, rec_p)
+    out["re_symbols"] = ops.dtw(ts, rec_s)
+
+
+def symed_receive_finish(state: ReceiverState, cfg: SymEDConfig,
+                         ts=None, reconstruct: bool = False, *,
                          with_delta: bool = False) -> Dict[str, Any]:
     """Close a stream: flush the tail, digitize the rest.
 
     Takes one slot's state (or a table).  The output dict matches
     ``symed_encode``'s; ``with_delta=True`` adds ``out["symbol_delta"]``,
-    the closing wire-out frame.
+    the closing wire-out frame.  ``reconstruct=True`` also rebuilds and
+    scores the stream against ``ts``, the raw points it ingested (``(T,)``,
+    or ``(S, T)`` for a table).
     """
+    if reconstruct and ts is None:
+        raise ValueError("reconstruct=True requires the raw stream ts")
     single = state.t_seen.dim() == 0
     st = _batch1(state) if single else state
     tail = compressor_finalize(st.comp)
@@ -286,37 +318,114 @@ def symed_receive_finish(state: ReceiverState, cfg: SymEDConfig, *,
     if with_delta:
         out["symbol_delta"] = _symbol_delta_info(
             st.dig.n, dig, symbols_online, endpoints, True)
+    if reconstruct:
+        ts = torch.as_tensor(ts, dtype=torch.float32, device=n_pieces.device)
+        _score(out, ts[None] if single else ts, lens, incs, n_pieces, st.t0)
     return _unbatch1(out) if single else out
 
 
-def symed_encode(ts, cfg: SymEDConfig, key) -> Dict[str, torch.Tensor]:
-    """Encode one stream ``ts (T,)`` in one shot: sender, wire, receiver.
-
-    ``key (2,)`` seeds the digitizer.  The output dict is the reference's
-    ``symed_encode(..., reconstruct=False)``.
-    """
-    ts = torch.as_tensor(ts, dtype=torch.float32)
-    events = compress_stream(ts, tol=cfg.tol, len_max=cfg.len_max,
-                             alpha=cfg.alpha)
-    wire = compact_events(events, n_max=cfg.n_max, t0=ts[0])
-    dig = digitize_pieces(
-        wire["lengths"], wire["incs"], wire["n_pieces"],
-        torch.as_tensor(key, device=ts.device), k_cap=cfg.k_max,
-        tol=cfg.tol, scl=cfg.scl, k_min=cfg.k_min, k_max_active=cfg.k_max,
-        lloyd_iters=cfg.lloyd_iters)
-    n_points = torch.tensor(ts.shape[-1], dtype=torch.int32, device=ts.device)
-    return {
-        "symbols": dig["labels"],
-        "symbols_online": dig["symbols"],
-        "centers": dig["centers"],
-        "k": dig["k"],
+def _receive(events, keys, ts, n_points: int, cfg: SymEDConfig, *,
+             reconstruct: bool) -> Dict[str, torch.Tensor]:
+    """Wire -> receiver for a batch of whole streams: compact, digitize,
+    score.  Shared by ``symed_encode``, ``symed_finish`` and ``symed_batch``
+    so their outputs agree by construction.  ``events`` carry per-step
+    ``emit``/``endpoint`` and the trailing ``tail``, time on the last axis
+    of ``(B, T)``; ``keys (B, 2)`` seed the digitizers; ``ts (B, T)`` is the
+    raw stream (its first points anchor the wire)."""
+    t0 = ts[:, 0]
+    wire = compact_events(events, n_max=cfg.n_max, t0=t0)
+    n_pieces = wire["n_pieces"]
+    dig = digitizer_init(cfg.n_max, cfg.k_max, keys)
+    dig, symbols = digitize_span_table(
+        dig, wire["lengths"], wire["incs"], torch.zeros_like(n_pieces),
+        n_pieces, **cfg.digitize_kw())
+    points = torch.tensor(n_points, dtype=torch.int32, device=ts.device)
+    out = {
+        "symbols": dig.labels,
+        "symbols_online": symbols,
+        "centers": dig.centers,
+        "k": dig.k,
         "pieces_len": wire["lengths"],
         "pieces_inc": wire["incs"],
-        "n_pieces": wire["n_pieces"],
-        "wire_bytes": 4.0 + 4.0 * wire["n_pieces"].float(),
-        "cr": compression_rate_symed(wire["n_pieces"], n_points),
-        "drr": drr(wire["n_pieces"], n_points),
+        "n_pieces": n_pieces,
+        "wire_bytes": 4.0 + 4.0 * n_pieces.float(),
+        "cr": compression_rate_symed(n_pieces, points),
+        "drr": drr(n_pieces, points),
     }
+    if reconstruct:
+        _score(out, ts, wire["lengths"], wire["incs"], n_pieces, t0)
+    return out
+
+
+def symed_encode(ts, cfg: SymEDConfig, key,
+                 reconstruct: bool = True) -> Dict[str, torch.Tensor]:
+    """Encode one stream ``ts (T,)`` in one shot: sender, wire, receiver.
+
+    ``key (2,)`` seeds the digitizer.  ``reconstruct=True`` adds
+    ``recon_pieces``/``recon_symbols`` (the stream rebuilt from its pieces
+    and from its symbols) and their DTW errors ``re_pieces``/``re_symbols``.
+    """
+    ts = torch.as_tensor(ts, dtype=torch.float32)[None]
+    events = compress_stream(ts, tol=cfg.tol, len_max=cfg.len_max,
+                             alpha=cfg.alpha)  # one stream: its own rounding
+    out = _receive(events, _key1(key, ts.device), ts, ts.shape[-1], cfg,
+                   reconstruct=reconstruct)
+    return _unbatch1(out)
+
+
+def symed_encode_chunk(ts_chunk, cfg: SymEDConfig,
+                       state: Optional[CompressorState] = None):
+    """Resumable sender: ingest one ``(..., C)`` window of the stream.
+
+    ``state=None`` opens the stream at the window's first point.  Returns
+    ``(state, events)``: per-step ``emit``/``endpoint``/``length``/``inc``
+    shaped like the window.  Step for step the same as ``compress_stream``
+    over the joined windows.
+    """
+    state, ev = compressor_scan(ts_chunk, state, tol=cfg.tol,
+                                len_max=cfg.len_max, alpha=cfg.alpha)
+    return state, {"emit": ev.emit, "endpoint": ev.endpoint,
+                   "length": ev.length, "inc": ev.inc}
+
+
+def symed_finish(events: Dict[str, torch.Tensor], state: CompressorState,
+                 cfg: SymEDConfig, key, ts,
+                 reconstruct: bool = True) -> Dict[str, torch.Tensor]:
+    """Close a chunked stream: flush the open segment, wire-compact,
+    digitize.
+
+    ``events`` are the ``symed_encode_chunk`` outputs joined along the step
+    axis (one stream, ``(T,)``); ``ts`` is the whole raw stream (only
+    ``ts[0]`` enters the wire; the DTW errors are scored against it).  The
+    output dict matches ``symed_encode``'s.
+    """
+    ts = torch.as_tensor(ts, dtype=torch.float32)
+    joined = {**{k: v[None] for k, v in events.items()},
+              "tail": _batch1(compressor_finalize(state))}
+    out = _receive(joined, _key1(key, ts.device), ts[None],
+                   events["emit"].shape[-1], cfg, reconstruct=reconstruct)
+    return _unbatch1(out)
+
+
+def symed_batch(ts, cfg: SymEDConfig, key,
+                reconstruct: bool = True) -> Dict[str, torch.Tensor]:
+    """A fleet slab ``ts (B, T)``; the digitizer keys are ``split(key, B)``.
+
+    The outputs carry a leading ``B`` axis.  The sender rounds EWMV as the
+    reference's vmapped program does: the single-stream form for at most
+    three streams, the batched form for more.
+    """
+    ts = torch.as_tensor(ts, dtype=torch.float32)
+    b = ts.shape[0]
+    events = compress_stream(ts, tol=cfg.tol, len_max=cfg.len_max,
+                             alpha=cfg.alpha, single=b <= 3)
+    keys = prng.split(prng.as_key(key, ts.device), b)
+    return _receive(events, keys, ts, ts.shape[-1], cfg,
+                    reconstruct=reconstruct)
+
+
+def _key1(key, device) -> torch.Tensor:
+    return prng.as_key(key, device).reshape(1, 2)
 
 
 def symbols_to_string(labels, n_pieces) -> str:

@@ -19,7 +19,7 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["build", "load", "BUILD_ROOT", "CSRC"]
+__all__ = ["build", "load", "check_tensor", "BUILD_ROOT", "CSRC"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
+_NAME_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -73,8 +74,29 @@ def build(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
+    """The loaded library of kernel ``name``, built on first use.  Threads
+    may load different kernels at once: each name has its own lock, so their
+    ``nvcc`` runs overlap."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name not in _LIBS:
             _LIBS[name] = ctypes.CDLL(str(build(name)))
         return _LIBS[name]
+
+
+def check_tensor(kernel: str, name: str, t, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
+    ``shape`` on ``device``: what a kernel's C entry point takes."""
+    if not t.is_cuda:
+        raise ValueError(f"{kernel}: {name} must be a CUDA tensor")
+    if t.device != device:
+        raise ValueError(f"{kernel}: {name} is on {t.device}, expected "
+                         f"{device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")

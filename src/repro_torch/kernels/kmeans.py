@@ -32,22 +32,6 @@ def _fn():
     return _LAUNCH[0]
 
 
-def _check(name, t, dtype, shape, device):
-    if not t.is_cuda:
-        raise ValueError(f"kmeans_assign_cuda: {name} must be a CUDA tensor")
-    if t.device != device:
-        raise ValueError(f"kmeans_assign_cuda: {name} is on {t.device}, "
-                         f"expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"kmeans_assign_cuda: {name} must be {dtype}, "
-                        f"got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"kmeans_assign_cuda: {name} has shape "
-                         f"{tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"kmeans_assign_cuda: {name} must be contiguous")
-
-
 def kmeans_assign_cuda(x, mask, centers, center_active):
     """Launch the kernel on the current stream.
 
@@ -62,10 +46,12 @@ def kmeans_assign_cuda(x, mask, centers, center_active):
     s, n, d = x.shape
     k = centers.shape[1]
     dev = x.device
-    _check("x", x, torch.float32, (s, n, d), dev)
-    _check("mask", mask, torch.bool, (s, n), dev)
-    _check("centers", centers, torch.float32, (s, k, d), dev)
-    _check("center_active", center_active, torch.bool, (s, k), dev)
+    for name, t, dtype, shape in (
+            ("x", x, torch.float32, (s, n, d)),
+            ("mask", mask, torch.bool, (s, n)),
+            ("centers", centers, torch.float32, (s, k, d)),
+            ("center_active", center_active, torch.bool, (s, k))):
+        _build.check_tensor("kmeans_assign_cuda", name, t, dtype, shape, dev)
     labels = torch.empty((s, n), dtype=torch.int32, device=dev)
     sums = torch.empty((s, k, d), dtype=torch.float32, device=dev)
     counts = torch.empty((s, k), dtype=torch.float32, device=dev)

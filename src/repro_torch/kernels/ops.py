@@ -10,9 +10,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.dtw import dtw_cuda
 from repro_torch.kernels.kmeans import kmeans_assign_cuda
 
-__all__ = ["kmeans_assign"]
+__all__ = ["kmeans_assign", "dtw"]
 
 
 def kmeans_assign(x, mask, centers, center_active, *, force_ref: bool = False):
@@ -30,3 +31,10 @@ def kmeans_assign(x, mask, centers, center_active, *, force_ref: bool = False):
     return kmeans_assign_cuda(x.contiguous(), mask.contiguous(),
                               centers.contiguous(),
                               center_active.contiguous())
+
+
+def dtw(x, y, band=None, *, force_ref: bool = False):
+    """Batched banded DTW distances ``(B, N) x (B, N) -> (B,)``."""
+    if force_ref or not torch.as_tensor(x).is_cuda:
+        return ref.dtw_batch_ref(x, y, band)
+    return dtw_cuda(x.float().contiguous(), y.float().contiguous(), band)

@@ -9,8 +9,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.digitize import _lloyd_half_step
+from repro_torch.core.metrics import dtw_ref
 
-__all__ = ["kmeans_assign_ref"]
+__all__ = ["kmeans_assign_ref", "dtw_batch_ref"]
 
 
 def kmeans_assign_ref(x, mask, centers, center_active):
@@ -28,3 +29,9 @@ def kmeans_assign_ref(x, mask, centers, center_active):
     active = torch.as_tensor(center_active, device=x.device) != 0
     labels, sums, counts = _lloyd_half_step(x, mask, centers, active)
     return torch.where(mask, labels, torch.zeros_like(labels)), sums, counts
+
+
+def dtw_batch_ref(x, y, band=None):
+    """Plain version of ``kernels.dtw.dtw_cuda``: ``core.metrics.dtw_ref``
+    on batched pairs ``x, y (B, N)`` -> ``(B,) f32``."""
+    return dtw_ref(x, y, band=band)

@@ -13,6 +13,11 @@ new_piece_endpoints, n_new)``; joining every delta of a session plus its
 closing frame reproduces ``symed_encode``'s ``symbols_online`` and wire
 endpoints.
 
+An online DTW monitor (``dtw_every=m``) scores each session's
+reconstruction from its pieces against the raw points seen so far every
+``m`` windows (``reconstruct_from_pieces`` + ``kernels.ops.dtw``: on CUDA
+the DTW kernel, one launch for all due sessions of one length).
+
 Slot lifecycle: ``open`` allocates a free slot (growing the table on the
 autoscale ladder, or with ``evict_idle`` closing the least-recently-active
 session, whose final output is parked in ``server.evicted``); ``close``
@@ -21,7 +26,8 @@ flushes the tail, emits the closing delta frame and frees the slot.
 CLI (round-robin arrivals from ``make_fleet``):
 
     PYTHONPATH=src python -m repro_torch.launch.stream --sessions 6 \
-        --max-slots 4 --length 384 --window 48 --evict --device cpu
+        --max-slots 4 --length 384 --window 48 --evict --dtw-every 2 \
+        --device cpu
 """
 from __future__ import annotations
 
@@ -36,12 +42,14 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import prng
 from repro_torch.core.receiver import (
-    DELTA_FRAME_HEADER_BYTES, DELTA_SYMBOL_BYTES,
+    DELTA_FRAME_HEADER_BYTES, DELTA_SYMBOL_BYTES, pieces_from_wire,
 )
+from repro_torch.core.reconstruct import reconstruct_from_pieces
 from repro_torch.core.symed import (
     SymEDConfig, receiver_init, symbols_to_string, symed_receive_finish,
     symed_receive_masked_chunk_table,
 )
+from repro_torch.kernels import ops
 
 __all__ = ["StreamServer", "PhaseClock", "main"]
 
@@ -121,6 +129,8 @@ class _Session:
     frames_out: int = 0       # delta frames emitted
     bytes_out: float = 0.0    # outbound delta-frame bytes
     last_active: int = 0      # server clock at last arrival (LRU eviction)
+    raw: Optional[List[np.ndarray]] = None  # raw points (DTW monitor only)
+    dtw: Optional[float] = None             # latest monitor reading
 
 
 class StreamServer:
@@ -139,6 +149,10 @@ class StreamServer:
         ``window_cap``-sized rounds host-side.
       digitize_every_k: digitize cadence in non-empty windows per session
         (0 defers symbols to ``close``).
+      dtw_every: every this-many windows per session, reconstruct from the
+        pieces so far and score DTW against the raw points seen so far
+        (0 disables; enabling keeps each session's raw history on the host).
+      dtw_band: Sakoe-Chiba radius for the monitor (None = full DTW).
       evict_idle: when the table is full and cannot grow, ``open`` evicts
         the least-recently active session instead of raising.
       autoscale: walk the capacity along a power-of-two ladder from 1 to
@@ -162,6 +176,8 @@ class StreamServer:
         max_sessions: int = 8,
         window_cap: int = 64,
         digitize_every_k: int = 1,
+        dtw_every: int = 0,
+        dtw_band: Optional[int] = None,
         evict_idle: bool = False,
         autoscale: bool = False,
         shrink_patience: int = 3,
@@ -180,11 +196,16 @@ class StreamServer:
         if shrink_patience < 1:
             raise ValueError(
                 f"shrink_patience must be >= 1, got {shrink_patience}")
+        if dtw_every < 0:
+            raise ValueError(f"dtw_every must be >= 0, got {dtw_every}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_sessions = int(max_sessions)
         self.window_cap = int(window_cap)
         self.digitize_every_k = int(digitize_every_k)
+        self.dtw_every = int(dtw_every)
+        self.dtw_band = dtw_band
+        self._dtw_due: set = set()  # sessions whose DTW cadence fired
         self.evict_idle = bool(evict_idle)
         self.autoscale = bool(autoscale)
         self.shrink_patience = int(shrink_patience)
@@ -206,7 +227,7 @@ class StreamServer:
             "points_in": 0, "bytes_in": 0.0, "symbols_out": 0,
             "frames_out": 0, "bytes_out": 0.0, "steps": 0,
             "opened": 0, "closed": 0, "evicted": 0,
-            "grows": 0, "shrinks": 0,
+            "grows": 0, "shrinks": 0, "dtw_readings": 0, "dtw_seconds": 0.0,
         }
         self._table = self._blanks(self.capacity)
 
@@ -226,6 +247,15 @@ class StreamServer:
     def session_ids(self) -> List[str]:
         """Open session ids, in open order."""
         return list(self._sessions)
+
+    def session_stats(self, stream_id: str) -> dict:
+        """Live bookkeeping for one open session (monitoring surface)."""
+        sess = self._sessions[stream_id]
+        return {
+            "slot": sess.slot, "chunks": sess.chunks, "t_seen": sess.t_seen,
+            "symbols_out": sess.symbols_out, "frames_out": sess.frames_out,
+            "bytes_out": sess.bytes_out, "dtw": sess.dtw,
+        }
 
     def open(self, stream_id: str, key=None) -> int:
         """Allocate a slot for ``stream_id``; returns the slot index.
@@ -256,7 +286,8 @@ class StreamServer:
                                                      b[None]),
                            self._table, blank)
         self._sessions[stream_id] = _Session(
-            stream_id=stream_id, slot=slot, last_active=self._clock)
+            stream_id=stream_id, slot=slot, last_active=self._clock,
+            raw=[] if self.dtw_every else None)
         self.totals["opened"] += 1
         self.totals["bytes_in"] += 4.0  # the t0 "hello" payload
         return slot
@@ -278,7 +309,8 @@ class StreamServer:
 
         Rounds are double-buffered: round ``r`` is dispatched, round
         ``r+1`` is packed on the host, and only then are round ``r``'s
-        outputs copied to the host, in one transfer.
+        outputs copied to the host, in one transfer.  The DTW monitor runs
+        once at the end, for every session whose cadence fired.
         """
         wins = {}
         for sid, w in arrivals.items():
@@ -311,6 +343,7 @@ class StreamServer:
             pend = flight
         if pend is not None:
             self._harvest_round(*pend, deltas)
+        self._run_dtw_monitor()
         return _finalize_deltas(deltas)
 
     def _dispatch(self, padded: np.ndarray, n_valid: np.ndarray):
@@ -357,12 +390,17 @@ class StreamServer:
             sess.last_active = clock
             self.totals["points_in"] += len(part)
             self.totals["bytes_in"] += 4.0 * len(part)
+            if sess.raw is not None:
+                sess.raw.append(part.copy())
+                if sess.chunks % self.dtw_every == 0:
+                    self._dtw_due.add(sid)
 
     def close(self, stream_id: str) -> dict:
         """Flush the tail, emit the closing delta frame, free the slot.
 
-        Returns ``{"out", "delta", "symbols", "n_pieces", "t_seen", ...}``
-        where ``out`` is the ``symed_receive_finish`` dict (host numpy).
+        Returns ``{"out", "delta", "symbols", "n_pieces", "t_seen", "dtw",
+        ...}`` where ``out`` is the ``symed_receive_finish`` dict (host
+        numpy) and ``dtw`` the session's latest monitor reading.
         """
         sess = self._sessions.pop(stream_id, None)
         if sess is None:
@@ -404,6 +442,7 @@ class StreamServer:
             "t_seen": sess.t_seen,
             "symbols_out": sess.symbols_out,
             "bytes_out": sess.bytes_out,
+            "dtw": sess.dtw,
         }
 
     def report(self, wall_seconds: float) -> Dict[str, float]:
@@ -485,6 +524,47 @@ class StreamServer:
             self.capacity = target
             self.totals["shrinks"] += 1
 
+    def _run_dtw_monitor(self) -> None:
+        """Online reconstruction error for every session whose DTW cadence
+        fired during this ingest call: DTW(raw so far, pieces so far).
+
+        The due slots are read out of the table in one gather; sessions
+        whose raw histories have one length share one batched
+        reconstruction and one DTW call (the pairs are independent, so each
+        reading is the one a call of its own gives); the readings come to
+        the host in one copy.
+        """
+        due = [self._sessions[sid] for sid in sorted(self._dtw_due)
+               if sid in self._sessions]
+        self._dtw_due.clear()
+        if not due:
+            return
+        t_start = time.perf_counter()
+        idx = torch.tensor([s.slot for s in due], dtype=torch.long,
+                           device=self.device)
+        t = self._table
+        endpoints, steps, n_pieces, t0 = (
+            leaf.index_select(0, idx)
+            for leaf in (t.endpoints, t.steps, t.n_pieces, t.t0))
+        lens, incs = pieces_from_wire(endpoints, steps, n_pieces, t0)
+        raws = [np.concatenate(s.raw) for s in due]
+        by_len: Dict[int, List[int]] = {}
+        for i, raw in enumerate(raws):
+            by_len.setdefault(raw.shape[0], []).append(i)
+        readings = torch.empty(len(due), dtype=torch.float32,
+                               device=self.device)
+        for length, rows in by_len.items():
+            r = torch.tensor(rows, dtype=torch.long, device=self.device)
+            rec = reconstruct_from_pieces(lens[r], incs[r], n_pieces[r],
+                                          t0[r], length)
+            raw = torch.from_numpy(np.stack([raws[i] for i in rows]))
+            readings[r] = ops.dtw(raw.to(self.device), rec,
+                                  band=self.dtw_band)
+        for sess, val in zip(due, readings.cpu().tolist()):
+            sess.dtw = val
+        self.totals["dtw_readings"] += len(due)
+        self.totals["dtw_seconds"] += time.perf_counter() - t_start
+
 
 # ----------------------------------------------------------------- CLI
 
@@ -516,11 +596,15 @@ def main(argv=None):
                     help="LRU-evict when the slot table is full")
     ap.add_argument("--autoscale", action="store_true",
                     help="grow/shrink the slot table on a power-of-two ladder")
+    ap.add_argument("--dtw-every", type=int, default=0,
+                    help="online DTW monitor cadence in windows (0: off)")
     ap.add_argument("--tol", type=float, default=0.5)
     ap.add_argument("--alpha", type=float, default=0.01)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
     args = ap.parse_args(argv)
+    if args.dtw_every < 0:
+        ap.error(f"--dtw-every must be >= 0, got {args.dtw_every}")
     if args.sessions > args.max_slots and not args.evict:
         ap.error(f"--sessions {args.sessions} exceeds --max-slots "
                  f"{args.max_slots}; pass --evict to allow LRU eviction")
@@ -529,11 +613,12 @@ def main(argv=None):
                       len_max=256)
     server = StreamServer(cfg, max_sessions=args.max_slots,
                           window_cap=args.window, evict_idle=args.evict,
+                          dtw_every=args.dtw_every,
                           autoscale=args.autoscale, seed=args.seed,
                           device=args.device)
     data = make_fleet(args.sessions, args.length, seed=args.seed)
     t0 = time.perf_counter()
-    _round_robin(server, data, args.window)
+    closed = _round_robin(server, data, args.window)
     if server.device.type == "cuda":
         torch.cuda.synchronize(server.device)
     rep = server.report(time.perf_counter() - t0)
@@ -558,6 +643,12 @@ def main(argv=None):
     print(f"symbols out             : {int(rep['symbols_out'])} in "
           f"{int(rep['frames_out'])} delta frames "
           f"({int(rep['bytes_out'])} wire-out bytes)")
+    if args.dtw_every:
+        vals = [r["dtw"] for r in (*closed.values(), *server.evicted.values())
+                if r["dtw"] is not None]
+        if vals:
+            print(f"online DTW monitor      : mean {np.mean(vals):.3f} "
+                  f"over {len(vals)} sessions")
     return rep
 
 

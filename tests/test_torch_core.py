@@ -23,6 +23,38 @@ from repro_torch.data.synthetic import make_fleet
 
 KINDS = ("mixed", "sine", "walk")
 SENDER = dict(tol=0.5, len_max=512, alpha=0.01)
+# (seed, kind, bits of a last point): ``make_stream(rng(seed), 300, kind)``
+# plus a point between the emit thresholds of the two EWMV roundings
+CRAFTED = [(0, "mixed", 0xC0D6F256), (2, "sine", 0xBF92CE4B),
+           (3, "mixed", 0x4007CB17)]
+
+
+def _crafted(seed, kind, last):
+    ts = make_stream(np.random.default_rng(seed), 300, kind)
+    return np.append(ts, np.array([last], np.uint32).view(np.float32))
+
+
+def _round_f32(q):
+    """An exact rational rounded to the nearest f32, ties to even."""
+    from fractions import Fraction
+
+    if q == 0:
+        return np.float32(0.0)
+    e = abs(q.numerator).bit_length() - abs(q.denominator).bit_length()
+    while abs(q) >= Fraction(2) ** (e + 1):
+        e += 1
+    while abs(q) < Fraction(2) ** e:
+        e -= 1
+    scale = Fraction(2) ** (e - 23)
+    m = round(q / scale)  # Fraction rounds half to even
+    return np.float32(float(m * scale))
+
+
+def _fma_exact(a, b, c):
+    from fractions import Fraction
+
+    return _round_f32(Fraction(float(a)) * Fraction(float(b))
+                      + Fraction(float(c)))
 
 
 def _np(x):
@@ -58,6 +90,34 @@ class TestNormalize:
         _eq(a.mean, b.mean)
         _eq(a.var, b.var)
 
+    def test_fma32_rounds_once(self):
+        """``fma32`` against an exact rational oracle.  The built cases put
+        the f64 sum on an f32 halfway point that the exact sum is not on,
+        where rounding to f64 and then to f32 goes the wrong way."""
+        a, b, c = [], [], []
+        for k in (-30, -3, 0, 7, 40):
+            for sign in (1.0, -1.0):
+                for c_ulps, p_sign in ((1, 1.0), (3, -1.0)):
+                    # p = +-2^(k-24) (1 - 2^-40), an exact f32 x f32 product
+                    a.append(sign * p_sign * (1 + 2.0 ** -20) * 2.0 ** (k - 24))
+                    b.append(1 - 2.0 ** -20)
+                    c.append(sign * (1 + c_ulps * 2.0 ** -23) * 2.0 ** k)
+        rng = np.random.default_rng(3)
+        n_built = len(a)
+        a += list(rng.normal(size=500) * 2.0 ** rng.integers(-20, 20, 500))
+        b += list(rng.normal(size=500))
+        c += list(rng.normal(size=500) * 2.0 ** rng.integers(-20, 20, 500))
+        a, b, c = (np.asarray(v, np.float32) for v in (a, b, c))
+        got = tn.fma32(*map(torch.from_numpy, (a, b, c))).numpy()
+        want = np.array([_fma_exact(*abc) for abc in zip(a, b, c)],
+                        np.float32)
+        _eq(got, want)
+        twice = (a.astype(np.float64) * b + c).astype(np.float32)
+        assert (twice[:n_built] != want[:n_built]).all()
+        # Python floats in any position, as the sender passes its weights
+        _eq(tn.fma32(float(a[0]), torch.from_numpy(b[:1]), float(c[0])),
+            want[:1])
+
     def test_standardize(self):
         rng = np.random.default_rng(1)
         x, m = (rng.normal(size=500).astype(np.float32) for _ in range(2))
@@ -92,13 +152,12 @@ class TestCompress:
 
     @pytest.mark.parametrize("kind", KINDS)
     def test_unbatched_reference_rounds_ewmv_differently(self, kind):
-        """ROADMAP Queue C: the reference's compiled program for a single
-        stream (rank-1 ``ts``, traced ``alpha``) fuses the EWMV update as
-        ``fma(a, d^2, (1-a) v)``, its batched programs as ``fma(1-a, v,
-        a d^2)``; the port computes the batched form everywhere (held
-        bitwise by ``test_compress_stream_bitwise``).  On these streams the
-        emits and every other leaf still agree bitwise, and the final EWMV
-        of the single-stream program is reproduced exactly by its fusion."""
+        """The reference's compiled program for a single stream (rank-1
+        ``ts``, traced ``alpha``) fuses the EWMV update as ``fma(a, d^2,
+        (1-a) v)``, its batched programs as ``fma(1-a, v, a d^2)``.  The
+        port follows it: on one stream every output and every leaf of the
+        final carry, EWMV included, is bitwise equal, and that EWMV differs
+        from the batched form's on these streams."""
         ts = make_stream(np.random.default_rng(0), 600, kind)
         a = jc.compress_stream(jnp.asarray(ts), **SENDER)
         b = tc.compress_stream(torch.from_numpy(ts), **SENDER)
@@ -107,21 +166,36 @@ class TestCompress:
         want, got = _state_leaves(a["final_state"]), _state_leaves(
             b["final_state"])
         for name in want:
-            if name != "var":
-                _eq(want[name], got[name], f"final_state.{name}")
+            _eq(want[name], got[name], f"final_state.{name}")
+        for x, y in zip(a["tail"], b["tail"]):
+            _eq(x, y, "tail")
+        batched = tc.compress_stream(torch.from_numpy(ts), single=False,
+                                     **SENDER)["final_state"].norm.var
+        assert not np.array_equal(np.asarray(want["var"]), batched.numpy())
 
-        def fma(x, y, z):
-            return np.float32(np.float64(x) * np.float64(y) + np.float64(z))
-
-        al = np.float32(SENDER["alpha"])
-        be = np.float32(1.0 - np.float32(SENDER["alpha"]))
-        mean, var = ts[0], np.float32(1.0)
-        for t in ts[1:]:
-            mean = fma(al, t, be * mean)
-            d = np.float32(t - mean)
-            var = fma(al, np.float32(d * d), be * var)
-        _eq(want["var"], var, "single-stream reference EWMV")
-        assert not np.array_equal(np.asarray(want["var"]), got["var"].numpy())
+    @pytest.mark.parametrize("seed,kind,last", CRAFTED)
+    def test_ewmv_form_by_batch_width(self, seed, kind, last):
+        """Streams whose last point sits between the two forms' emit
+        thresholds: the reference's ``compress_stream`` takes the
+        single-stream form for one or two streams and the batched form
+        for three or more, and so does the port."""
+        ts = _crafted(seed, kind, last)
+        fleet = make_fleet(3, ts.shape[0], seed=seed)
+        single = int(tc.compress_stream(torch.from_numpy(ts), single=True,
+                                        **SENDER)["n_pieces"])
+        batched = int(tc.compress_stream(torch.from_numpy(ts), single=False,
+                                         **SENDER)["n_pieces"])
+        assert single != batched
+        for width in (1, 2, 3, 4):
+            slab = np.concatenate([ts[None], fleet[: width - 1]])
+            a = jc.compress_stream(jnp.asarray(slab), **SENDER)
+            b = tc.compress_stream(torch.from_numpy(slab), **SENDER)
+            for name in ("emit", "n_pieces"):
+                _eq(a[name], b[name], f"width {width} {name}")
+            _eq(a["final_state"].norm.var, b["final_state"].norm.var,
+                f"width {width} var")
+            assert int(b["n_pieces"][0]) == (single if width <= 2
+                                             else batched)
 
     def test_compress_fleet_slab_bitwise(self):
         ts = make_fleet(40, 700, seed=5)

@@ -209,6 +209,94 @@ class TestServerParity:
                 port_info["symbol_delta"][name].numpy(), err_msg=name)
 
 
+class TestDtwMonitor:
+    """The online DTW monitor against the reference's, and against the
+    port's own recomputation from the slot table."""
+
+    @staticmethod
+    def _recompute(server, sid, raw):
+        """``reconstruct_from_pieces`` + ``dtw_ref`` on one slot's pieces."""
+        from repro_torch.core.metrics import dtw_ref
+        from repro_torch.core.receiver import pieces_from_wire
+        from repro_torch.core.reconstruct import reconstruct_from_pieces
+
+        t = server._table
+        slot = server.session_stats(sid)["slot"]
+        lens, incs = pieces_from_wire(t.endpoints[slot], t.steps[slot],
+                                      t.n_pieces[slot], t.t0[slot])
+        rec = reconstruct_from_pieces(lens, incs, t.n_pieces[slot],
+                                      t.t0[slot], raw.shape[0])
+        return float(dtw_ref(torch.from_numpy(raw), rec,
+                             band=server.dtw_band))
+
+    @pytest.mark.parametrize("band", [None, 8])
+    def test_readings_match_reference(self, band):
+        rng = np.random.default_rng(60)
+        ts = make_stream(rng, 200, "mixed")
+        ref, port = _pair(max_sessions=2, dtw_every=2, dtw_band=band)
+        key = jax.random.key(3)
+        ref.open("s", key=key)
+        port.open("s", key=np.asarray(jax.random.key_data(key)))
+        pos, readings = 0, 0
+        while pos < len(ts):
+            n = int(rng.integers(1, 30))
+            part = ts[pos: pos + n]
+            pos += n
+            a, b = ref.ingest("s", part), port.ingest("s", part)
+            _assert_delta_equal(a, b, f"at {pos}")
+            want = ref.session_stats("s")["dtw"]
+            got = port.session_stats("s")["dtw"]
+            assert (want is None) == (got is None), pos
+            if got is not None:
+                readings += 1
+                np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+            if port.session_stats("s")["chunks"] % 2 == 0:  # fired now
+                assert got == self._recompute(port, "s", ts[:pos])
+        assert readings >= 5
+        a, b = ref.close("s"), port.close("s")
+        np.testing.assert_allclose(b["dtw"], a["dtw"], rtol=1e-5, atol=1e-5)
+
+    def test_sessions_of_two_lengths_due_together(self):
+        """Three sessions fall due in one ``ingest_many``; two share a raw
+        length (one batched reconstruction), one does not."""
+        rng = np.random.default_rng(61)
+        streams = [make_stream(rng, 160, kind) for kind in
+                   ("mixed", "walk", "sine")]
+        ref, port = _pair(max_sessions=4, dtw_every=1)
+        for i in range(3):
+            ref.open(f"s{i}")
+            port.open(f"s{i}")
+        pos = [0, 0, 0]
+        for widths in ((20, 20, 31), (40, 40, 17)):
+            batch = {}
+            for i, w in enumerate(widths):
+                batch[f"s{i}"] = streams[i][pos[i]: pos[i] + w]
+                pos[i] += w
+            ref.ingest_many(batch)
+            port.ingest_many(batch)
+            for i in range(3):
+                sid = f"s{i}"
+                got = port.session_stats(sid)["dtw"]
+                np.testing.assert_allclose(
+                    got, ref.session_stats(sid)["dtw"], rtol=1e-5, atol=1e-5)
+                assert got == self._recompute(port, sid, streams[i][:pos[i]])
+        for i in range(3):
+            a, b = ref.close(f"s{i}"), port.close(f"s{i}")
+            assert a["dtw"] is not None
+            np.testing.assert_allclose(b["dtw"], a["dtw"], rtol=1e-5,
+                                       atol=1e-5)
+
+    def test_off_by_default_and_validated(self):
+        server = StreamServer(CFG, max_sessions=1, window_cap=8,
+                              device="cpu")
+        server.open("a")
+        server.ingest("a", np.arange(20, dtype=np.float32))
+        assert server.session_stats("a")["dtw"] is None
+        assert server.close("a")["dtw"] is None
+        with pytest.raises(ValueError, match="dtw_every"):
+            StreamServer(CFG, dtw_every=-1, device="cpu")
+
+
 def test_masked_chunk_per_slot():
     """One slot's state through ``symed_receive_masked_chunk`` (ragged
     windows, an idle window, the seeding one) and the closing frame."""
@@ -262,7 +350,8 @@ class TestPortContract:
             deltas.append(server.ingest("s", ts[pos: pos + n]))
             pos += n
         res = server.close("s")
-        whole = symed_encode(torch.from_numpy(ts), CFG, torch.tensor([0, 77]))
+        whole = symed_encode(torch.from_numpy(ts), CFG, torch.tensor([0, 77]),
+                             reconstruct=False)
         n = int(whole["n_pieces"])
         labels = np.concatenate([d["labels"] for d in deltas]
                                 + [res["delta"]["labels"]])
@@ -289,25 +378,33 @@ class TestPortContract:
         from repro_torch.launch.stream import main
 
         rep = main(["--sessions", "3", "--max-slots", "2", "--evict",
-                    "--length", "60", "--window", "24", "--device", "cpu"])
+                    "--length", "60", "--window", "24", "--dtw-every", "1",
+                    "--device", "cpu"])
         out = capsys.readouterr().out
         line = [l for l in out.splitlines() if l.startswith("stream_summary ")]
         assert line and "opened=3" in line[0] and "evicted=1" in line[0]
         assert rep["points_in"] > 0
+        assert "online DTW monitor      : mean " in out
+        assert out.rstrip().endswith("over 2 sessions")  # s0 was evicted unfed
+        with pytest.raises(SystemExit):
+            main(["--dtw-every", "-1", "--device", "cpu"])
 
 
 def test_port_imports_no_jax():
-    """``import repro_torch`` plus one CPU service round leaves jax and
-    every module of the JAX package out of ``sys.modules``."""
+    """``import repro_torch`` plus one CPU service round with the DTW
+    monitor on leaves jax and every module of the JAX package out of
+    ``sys.modules``."""
     code = (
         "import sys, numpy as np\n"
         "import repro_torch\n"
         "from repro_torch.launch.stream import StreamServer\n"
         "from repro_torch.core.symed import SymEDConfig\n"
         "cfg = SymEDConfig(n_max=32, k_max=4, len_max=16, lloyd_iters=2)\n"
-        "srv = StreamServer(cfg, max_sessions=2, window_cap=16, device='cpu')\n"
+        "srv = StreamServer(cfg, max_sessions=2, window_cap=16, device='cpu',"
+        " dtw_every=1)\n"
         "srv.open('a')\n"
         "srv.ingest('a', np.sin(np.arange(40, dtype=np.float32) / 3))\n"
+        "assert srv.session_stats('a')['dtw'] is not None\n"
         "srv.close('a')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
