@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of SymED on one GPU and check it.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``.  Five phases,
+Run from the root of a checkout: ``python3 chip_smoke.py``.  Six phases,
 each raising on failure:
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
-2. build: the k-means and DTW kernels from ``src/repro_torch/kernels/csrc``,
-   one ``nvcc`` each, started together;
+2. build: the k-means, DTW and EWMA kernels from
+   ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, started together;
 3. the k-means kernel against its plain PyTorch version on the card, at the
    shapes of ``tests/test_kernels.py`` and at the service's shape (S=256
    slots, N=512 pieces, D=2, K=100 centers): labels and counts exact,
@@ -15,7 +15,17 @@ each raising on failure:
    ``tests/test_kernels.py``, at a length whose diagonals need the global
    scratch (B=2, N=20000) and at the monitor's shape (B=256 sessions,
    N=2048 points, full and at band 64); device time from a CUDA graph;
-5. end to end: ``StreamServer`` on cuda with the paper's settings serves 256
+5. the EWMA kernel's entry point, ``kernels.ops.ewma_scan``, on the paper's
+   fleet slab (``make_fleet(256, 2048, seed=0)``, alpha 0.01) and the
+   z-scores ``normalize.standardize`` makes of it; then the kernel against
+   its plain version at the shapes of ``tests/test_kernels.py``, at alpha
+   0.5 and 1.0, on a row of 79 tiles (B=2, T=20000), at the 64 x 2048
+   slab of ``benchmarks/kernels_bench.py``, on streams offset by 1000 and
+   on the fleet slab: point 0 exact, means within rtol=atol=2e-5, vars
+   within 2e-4 (the offset streams: 1e-4 and 1e-3/1e-2); the plain version
+   on the card bitwise equal to the CPU's on the fleet slab; device time
+   from a CUDA graph at 64 x 2048 and 256 x 2048;
+6. end to end: ``StreamServer`` on cuda with the paper's settings serves 256
    sessions x 2048 points in 64-point windows with the online DTW monitor
    every 8 windows, and closes them, through the k-means kernel; every 16th
    of those sessions again through its plain version (16 sessions, to keep
@@ -62,7 +72,17 @@ DTW_SHAPES = [(1, 32, None), (4, 150, None), (8, 128, None), (3, 257, None),
               (16, 64, None), (4, 200, 5), (4, 200, 20), (4, 200, 64),
               (3, 96, 0), (2, 20000, None), (256, 2048, 64)]
 DTW_MAIN = (SESSIONS, POINTS, None)
-KERNELS = ("kmeans_assign", "dtw")
+# (B, T, alpha): tests/test_kernels.py's EWMA cases, alpha 0.5 and 1.0, a
+# row whose carry crosses 79 tiles, and benchmarks/kernels_bench.py's slab
+EWMA_SHAPES = ([(b, t, alpha) for b, t in ((1, 64), (3, 300), (8, 1024),
+                                           (17, 257), (256, 96))
+                for alpha in (0.01, 0.05, 0.2, 0.5, 1.0)]
+               + [(2, 20000, 0.02), (64, 2048, 0.02)])
+EWMA_LARGE = (2, 512, 0.05)  # streams offset by 1000, as in the tests
+EWMA_ALPHA = 0.01            # the paper's, on make_fleet(SESSIONS, POINTS)
+EWMA_TOL = ({"rtol": 2e-5, "atol": 2e-5}, {"rtol": 2e-4, "atol": 2e-4})
+EWMA_LARGE_TOL = ({"rtol": 1e-4, "atol": 0.0}, {"rtol": 1e-3, "atol": 1e-2})
+KERNELS = ("kmeans_assign", "dtw", "ewma")
 
 
 _T0 = time.perf_counter()
@@ -261,6 +281,115 @@ def dtw_phase(torch, dev):
     return {"max_abs_err": worst, **measured}
 
 
+def _ewma_bound_ms(b, t):
+    """Least time for one EWMA/EWMV scan of (B, T): 12 bytes per point
+    (t read once, the mean and the var written once) over the HBM rate, and
+    8 f32 operations per point (mean: a multiply and a fused multiply-add;
+    var: a subtract, two multiplies and a fused multiply-add) over the f32
+    peak; the larger of the two.  The T dependent steps of a row are a
+    latency floor this does not count."""
+    t_bytes = 12 * b * t / PEAK_BYTES_PER_S * 1e3
+    t_ops = 8 * b * t / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _ewma_check(torch, ts, got, want, tol, what):
+    """Kernel output ``got`` against the plain version's ``want``: point 0
+    exact (t_0 and 1.0), means and vars within ``tol``; returns the largest
+    absolute difference."""
+    (m, v), (pm, pv) = got, want
+    if m.shape != ts.shape or v.shape != ts.shape:
+        raise AssertionError(f"ewma {what}: shapes {tuple(m.shape)}, "
+                             f"{tuple(v.shape)}")
+    if not (torch.equal(m[:, 0], ts[:, 0]) and bool((v[:, 0] == 1).all())):
+        raise AssertionError(f"ewma {what}: point 0 is not (t_0, 1.0)")
+    torch.testing.assert_close(m, pm, **tol[0], msg=lambda e: f"ewma {what} "
+                               f"means: {e}")
+    torch.testing.assert_close(v, pv, **tol[1], msg=lambda e: f"ewma {what} "
+                               f"vars: {e}")
+    return max(float((m - pm).abs().max()), float((v - pv).abs().max()))
+
+
+def ewma_phase(torch, dev):
+    """The EWMA kernel's entry point on the fleet slab, then the kernel
+    against its plain version; returns the kernels line's numbers."""
+    from repro_torch.core import normalize
+    from repro_torch.data.synthetic import make_fleet
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ewma import ewma_scan_cuda
+
+    slab_cpu = torch.from_numpy(make_fleet(SESSIONS, POINTS, seed=0))
+    slab = slab_cpu.to(dev)
+    ewma_scan_cuda.launches = 0
+    means, vars_ = ops.ewma_scan(slab, EWMA_ALPHA)
+    z = normalize.standardize(slab, means, vars_)
+    torch.cuda.synchronize()
+    launches = ewma_scan_cuda.launches
+    if launches <= 0:
+        raise AssertionError("ops.ewma_scan never launched the ewma kernel")
+    if z.shape != slab.shape or not bool(torch.isfinite(z).all()):
+        raise AssertionError("ewma: the fleet slab's z-scores are not finite")
+    plain = ref.ewma_scan_ref(slab, EWMA_ALPHA)
+    on_cpu = ref.ewma_scan_ref(slab_cpu, EWMA_ALPHA)
+    for got, want, what in zip(plain, on_cpu, ("means", "vars")):
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"ewma fleet slab: the plain version's {what}"
+                                 " on the card differ from the CPU's")
+    err = _ewma_check(torch, slab, (means, vars_), plain, EWMA_TOL,
+                      "fleet slab")
+    print(f"ewma entry point on the fleet slab B,T={tuple(slab.shape)}, "
+          f"alpha={EWMA_ALPHA}: {launches} kernel launch, z-scores finite, "
+          f"point 0 exact, max_abs_err={err:.3e} against the plain version, "
+          f"which is bitwise equal to the CPU's", flush=True)
+
+    g = torch.Generator(device="cpu").manual_seed(300)
+    cases = [(torch.randn(b, t, generator=g) * 2.0, alpha, EWMA_TOL)
+             for b, t, alpha in EWMA_SHAPES]
+    b, t, alpha = EWMA_LARGE
+    cases.append((1000.0 + 5.0 * torch.randn(b, t, generator=g), alpha,
+                  EWMA_LARGE_TOL))
+    timed = []  # (alpha, slab) pairs to time: kernels_bench.py's, the fleet
+    for ts, alpha, tol in cases:
+        ts = ts.to(dev)
+        what = f"B,T={tuple(ts.shape)} alpha={alpha}"
+        got = ewma_scan_cuda(ts, alpha)
+        again = ewma_scan_cuda(ts, alpha)
+        want = ref.ewma_scan_ref(ts, alpha)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], again[0]) and torch.equal(got[1],
+                                                              again[1])):
+            raise AssertionError(f"ewma {what}: two calls differ")
+        e = _ewma_check(torch, ts, got, want, tol, what)
+        print(f"ewma {what}: point 0 exact, within tolerance, two calls "
+              f"bitwise equal (max_abs_err={e:.3e})", flush=True)
+        if tuple(ts.shape) == (64, 2048):
+            timed.append((alpha, ts))
+    timed.append((EWMA_ALPHA, slab))
+
+    measured = None
+    for alpha, ts in timed:
+        b, t = ts.shape
+        kernel = lambda: ewma_scan_cuda(ts, alpha)
+        ms = _graph_ms(torch, kernel)
+        call_ms = _median_ms(torch, kernel)
+        # warm from the checks above; about 2047 eager steps of ewm_step
+        plain_ms = _median_ms(torch, lambda: ref.ewma_scan_ref(ts, alpha),
+                              runs=3, warmup=0)
+        bound, bound_by = _ewma_bound_ms(b, t)
+        print(f"ewma at B={b}, T={t}, alpha={alpha}: device time per call "
+              f"(CUDA graph of 50, median of 10 replays) kernel {ms:.5f} ms; "
+              f"one call launched from Python (CUDA events, median of 50) "
+              f"{call_ms:.5f} ms; plain version (CUDA events, median of 3) "
+              f"{plain_ms:.5f} ms; bound {bound:.6f} ms ({bound_by}; the "
+              f"{t - 1} dependent steps of a row are a latency floor the "
+              f"roofline does not count)", flush=True)
+        if (b, t) == (SESSIONS, POINTS):
+            measured = {"launches": launches, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": bound_by}
+    return measured
+
+
 def _serve(torch, cfg, data, *, device, use_kernel, window, clock=None,
            dtw_every=0, check_rows=(), rows=None):
     """Round-robin arrivals of every row of ``data``, then close all.
@@ -388,7 +517,7 @@ def _encode(torch, ts, cfg, i, dev):
 
 
 def _cpu_reference():
-    """The CPU port's side of phase 5's cross-device checks: the 8
+    """The CPU port's side of phase 6's cross-device checks: the 8
     ``CHECK_ROWS`` sessions at the paper's settings with the DTW monitor,
     the small config, and ``symed_encode`` on the ``ENCODE_ROWS``.  Runs in
     a worker process while the card works; every input is made here from
@@ -486,6 +615,7 @@ def end_to_end_phase(torch, dev, cpu_results):
     from repro_torch.core import digitize
     from repro_torch.data.synthetic import make_fleet
     from repro_torch.kernels.dtw import dtw_cuda
+    from repro_torch.kernels.ewma import ewma_scan_cuda
     from repro_torch.kernels.kmeans import kmeans_assign_cuda
     from repro_torch.launch.stream import PhaseClock
 
@@ -496,6 +626,7 @@ def end_to_end_phase(torch, dev, cpu_results):
     check_rows = CHECK_ROWS
     kmeans_assign_cuda.launches = 0
     dtw_cuda.launches = 0
+    ewma_scan_cuda.launches = 0
     digitize.host_syncs = 0
     krn, t_krn = _serve(torch, cfg, data, device=dev, use_kernel=True,
                         window=WINDOW, clock=clock, dtw_every=DTW_EVERY,
@@ -507,6 +638,9 @@ def end_to_end_phase(torch, dev, cpu_results):
         if n <= 0:
             raise AssertionError(f"the service never launched the {name} "
                                  "kernel")
+    if ewma_scan_cuda.launches:
+        raise AssertionError("the service launched the ewma kernel: its "
+                             "sender normalizes one point at a time")
     readings = [res["dtw"] for res in krn.values()]
     if any(r is None or not np.isfinite(r) for r in readings):
         raise AssertionError("a session has no finite DTW reading")
@@ -542,8 +676,8 @@ def end_to_end_phase(torch, dev, cpu_results):
           f"rounds; "
           f"k-means kernel launches {launches['kmeans_assign']}, host syncs "
           f"{syncs} "
-          f"({syncs / max(rounds, 1):.1f} per round + 1 harvest copy)",
-          flush=True)
+          f"({syncs / max(rounds, 1):.1f} per round + 1 harvest copy); "
+          f"ewma kernel launches 0, as in the reference", flush=True)
     print(f"end to end (kernel): {t_krn['points'] / t_krn['wall']:.1f} "
           f"points/s over {t_krn['wall']:.2f} s, "
           f"{1e3 * t_krn['ingest'] / rounds:.2f} ms per round "
@@ -601,7 +735,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"nvcc: {_nvcc_version()}", flush=True)
 
-    # the CPU port's side of phase 5 runs beside the card's phases
+    # the CPU port's side of phase 6 runs beside the card's phases
     ctx = multiprocessing.get_context("spawn")
     cpu_results, send = ctx.Pipe(duplex=False)
     worker = ctx.Process(target=_cpu_worker, args=(send,), daemon=True)
@@ -637,15 +771,24 @@ def _card_phases(torch, dev, smi, cpu_results) -> int:
     phase("DTW kernel against its plain version")
     measured["dtw"] = dtw_phase(torch, dev)
 
+    phase("EWMA kernel against its plain version")
+    measured["ewma"] = ewma_phase(torch, dev)
+
     phase("end to end")
     launches = end_to_end_phase(torch, dev, cpu_results)
+    # the ewma kernel's launches are its own path's (phase 5): the service
+    # launches it no time, as the reference's does not
+    launches["ewma"] = measured["ewma"].pop("launches")
 
     rows = [{"name": "kmeans_assign", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/kmeans_assign.cu",
              "replaces": "src/repro/kernels/kmeans.py:78"},
             {"name": "dtw", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/dtw.cu",
-             "replaces": "src/repro/kernels/dtw.py:71"}]
+             "replaces": "src/repro/kernels/dtw.py:71"},
+            {"name": "ewma", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/ewma.cu",
+             "replaces": "src/repro/kernels/ewma.py:104"}]
     rows = [{**row, "launches": launches[row["name"]],
              **measured[row["name"]], "library_ms": None} for row in rows]
     print(smi)

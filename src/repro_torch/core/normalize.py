@@ -12,8 +12,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-__all__ = ["EwmState", "ewm_init", "ewm_step", "ewm_scan", "standardize",
-           "fma32"]
+__all__ = ["EwmState", "ewm_init", "ewm_coeffs", "ewm_step", "ewm_scan",
+           "standardize", "fma32"]
 
 
 def fma32(a, b, c) -> torch.Tensor:
@@ -53,6 +53,14 @@ def ewm_init(t0: torch.Tensor) -> EwmState:
     return EwmState(mean=t0, var=torch.ones_like(t0))
 
 
+def ewm_coeffs(alpha) -> Tuple[float, float]:
+    """``a`` and ``1 - a`` of the update, as f32 values: the roundings of
+    ``alpha`` and of ``1.0 - alpha`` (a float or a 0-d tensor)."""
+    a = float(torch.as_tensor(alpha, dtype=torch.float32))
+    b = float(torch.as_tensor(1.0 - alpha, dtype=torch.float32))
+    return a, b
+
+
 def ewm_step(state: EwmState, t: torch.Tensor, alpha: float, *,
              single: bool = False) -> EwmState:
     """One damped-window update.
@@ -66,8 +74,7 @@ def ewm_step(state: EwmState, t: torch.Tensor, alpha: float, *,
     its program for one rank-1 stream (``single=True``) as
     ``fma(a, d^2, (1-a) v)``.
     """
-    a = float(torch.tensor(alpha, dtype=torch.float32))
-    b = float(torch.tensor(1.0 - alpha, dtype=torch.float32))
+    a, b = ewm_coeffs(alpha)
     mean = fma32(a, t, b * state.mean)
     dev = t - mean
     if single:

@@ -11,9 +11,17 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.dtw import dtw_cuda
+from repro_torch.kernels.ewma import ewma_scan_cuda
 from repro_torch.kernels.kmeans import kmeans_assign_cuda
 
-__all__ = ["kmeans_assign", "dtw"]
+__all__ = ["ewma_scan", "kmeans_assign", "dtw"]
+
+
+def ewma_scan(ts, alpha, *, force_ref: bool = False):
+    """Batched EWMA/EWMV ``(B, T) -> (means, vars)``, both ``(B, T) f32``."""
+    if force_ref or not torch.as_tensor(ts).is_cuda:
+        return ref.ewma_scan_ref(ts, alpha)
+    return ewma_scan_cuda(ts.float().contiguous(), alpha)
 
 
 def kmeans_assign(x, mask, centers, center_active, *, force_ref: bool = False):

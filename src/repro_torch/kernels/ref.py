@@ -10,8 +10,15 @@ import torch
 
 from repro_torch.core.digitize import _lloyd_half_step
 from repro_torch.core.metrics import dtw_ref
+from repro_torch.core.normalize import ewm_scan
 
-__all__ = ["kmeans_assign_ref", "dtw_batch_ref"]
+__all__ = ["ewma_scan_ref", "kmeans_assign_ref", "dtw_batch_ref"]
+
+
+def ewma_scan_ref(ts, alpha):
+    """Plain version of ``kernels.ewma.ewma_scan_cuda``: ``core.normalize.
+    ewm_scan`` on f32 ``ts (B, T)`` -> ``means, vars (B, T) f32``."""
+    return ewm_scan(torch.as_tensor(ts, dtype=torch.float32), alpha)
 
 
 def kmeans_assign_ref(x, mask, centers, center_active):
