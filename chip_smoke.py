@@ -7,10 +7,15 @@ each raising on failure:
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
 2. build: the k-means, DTW and EWMA kernels from
    ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, started together;
-3. the k-means kernel against its plain PyTorch version on the card, at the
-   shapes of ``tests/test_kernels.py`` and at the service's shape (S=256
-   slots, N=512 pieces, D=2, K=100 centers): labels and counts exact,
-   masked labels 0, sums within rtol=atol=1e-5; median times over 50 runs;
+3. the k-means kernels against their plain PyTorch versions on the card,
+   at the shapes of ``tests/test_kernels.py`` and at the service's shape
+   (S=256 slots, N=512 pieces, D=2, K=100 centers).  The half-step: labels
+   and counts exact, masked labels 0, sums within rtol=atol=1e-5, and one
+   call of its entry point ``ops.kmeans_assign`` counted.  The Lloyd kernel
+   (10 iterations; 0 and 1 at one shape; also at N=30000, staged a tile at
+   a time): bitwise equal to the half-step kernel iterated with the eager
+   center update, two calls bitwise equal, labels exact and centers within
+   rtol=atol=1e-5 of its plain version.  Device times from CUDA graphs;
 4. the DTW kernel against its plain version, bitwise, at the shapes of
    ``tests/test_kernels.py``, at a length whose diagonals need the global
    scratch (B=2, N=20000) and at the monitor's shape (B=256 sessions,
@@ -27,7 +32,8 @@ each raising on failure:
    from a CUDA graph at 64 x 2048 and 256 x 2048;
 6. end to end: ``StreamServer`` on cuda with the paper's settings serves 256
    sessions x 2048 points in 64-point windows with the online DTW monitor
-   every 8 windows, and closes them, through the k-means kernel; every 16th
+   every 8 windows, and closes them, through the Lloyd kernel (and no
+   half-step launch); every 16th
    of those sessions again through its plain version (16 sessions, to keep
    the call short); 8 of the final DTW readings are recomputed with the
    plain DTW on the card.  Then 8 of those sessions (every 32nd) served by
@@ -82,7 +88,11 @@ EWMA_LARGE = (2, 512, 0.05)  # streams offset by 1000, as in the tests
 EWMA_ALPHA = 0.01            # the paper's, on make_fleet(SESSIONS, POINTS)
 EWMA_TOL = ({"rtol": 2e-5, "atol": 2e-5}, {"rtol": 2e-4, "atol": 2e-4})
 EWMA_LARGE_TOL = ({"rtol": 1e-4, "atol": 0.0}, {"rtol": 1e-3, "atol": 1e-2})
-KERNELS = ("kmeans_assign", "dtw", "ewma")
+# one CUDA source each; kmeans_assign.cu holds the half-step and the Lloyd
+# kernel
+SOURCES = ("kmeans_assign", "dtw", "ewma")
+LLOYD_ITERS = 10  # the paper's lloyd_iters
+LLOYD_EXTRA = [(2, 30000, 2, 8)]  # pieces too many for shared memory
 
 
 _T0 = time.perf_counter()
@@ -152,6 +162,24 @@ def _graph_ms(torch, fn, runs=50, replays=10):
     return _median_ms(torch, graph.replay, runs=replays, warmup=2) / runs
 
 
+def _roofline(nbytes, ops):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _assign_ops(shape, mask, n_active):
+    """f32 operations of one assign half-step: per valid piece |x|^2 (2D),
+    D adds and a count; per (valid piece, active center) the dot (2D), the
+    expansion (3) and the compare (1); per center |c|^2 (2D).  A masked
+    piece's label is 0 whatever its distances, so it needs none."""
+    s, n, d, k = shape
+    valid = mask.sum(dim=1)
+    pairs = int((valid * n_active).sum())
+    return ((3 * d + 1) * int(valid.sum()) + (2 * d + 4) * pairs
+            + 2 * d * s * k)
+
+
 def _bound_ms(shape, mask, act):
     """Least time for one assign half-step on these inputs: bytes moved
     (inputs read once, outputs written once) over the HBM rate, and f32
@@ -159,23 +187,93 @@ def _bound_ms(shape, mask, act):
     s, n, d, k = shape
     nbytes = (4 * s * n * d + s * n + 4 * s * k * d + s * k   # inputs
               + 4 * s * n + 4 * s * k * d + 4 * s * k)          # outputs
-    active_pairs = int(act.sum(dim=1).mul(n).sum())
-    # per piece |x|^2 (2D); per (piece, active center) the dot (2D), the
-    # expansion (3) and the compare (1); per valid piece D adds and a count
-    ops = (2 * d * s * n + (2 * d + 4) * active_pairs
-           + (d + 1) * int(mask.sum()) + 2 * d * s * k)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return _roofline(nbytes, _assign_ops(shape, mask, act.sum(dim=1)))
+
+
+def _lloyd_bound_ms(shape, mask, k_act, iters):
+    """Least time for ``iters`` Lloyd iterations on these inputs: the bytes
+    (coords, mask, c_init and k read once, centers and labels written once),
+    and ``iters`` half-steps' operations plus each iteration's D divisions
+    per center; the larger of the two."""
+    s, n, d, k = shape
+    nbytes = (4 * s * n * d + s * n + 4 * s * k * d + 4 * s   # inputs
+              + 4 * s * k * d + 4 * s * n)                      # outputs
+    n_active = k_act.clamp(0, k)
+    ops = iters * (_assign_ops(shape, mask, n_active) + d * s * k)
+    return _roofline(nbytes, ops)
+
+
+def _half_step_loop(torch, x, mask, c_init, k, iters):
+    """The loop ``masked_kmeans_table`` ran before the Lloyd kernel: the
+    half-step kernel and the eager center update, ``iters`` times."""
+    from repro_torch.core.digitize import _lloyd_loop
+    from repro_torch.kernels.kmeans import kmeans_assign_cuda
+
+    active = torch.arange(c_init.shape[1], device=x.device)[None] < k[:, None]
+    return _lloyd_loop(lambda cen: kmeans_assign_cuda(x, mask, cen, active),
+                       c_init, x.shape[1], iters)
+
+
+def _same(torch, a, b):
+    """Bitwise equal, NaN where NaN."""
+    return a.shape == b.shape and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _check_lloyd(torch, shape, x, mask, c, k, iters):
+    """The Lloyd kernel against the iterated half-step kernel (bitwise),
+    against itself (two calls bitwise) and against its plain version
+    (labels exact, centers within 1e-5); returns the centers' largest
+    absolute difference from the plain version."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.kmeans import kmeans_lloyd_cuda
+
+    what = f"kmeans_lloyd S,N,D,K={shape} iters={iters}"
+    c1, l1 = kmeans_lloyd_cuda(x, mask, c, k, iters)
+    c2, l2 = kmeans_lloyd_cuda(x, mask, c, k, iters)
+    cw, lw = _half_step_loop(torch, x, mask, c, k, iters)
+    cp, lp = ref.kmeans_lloyd_ref(x, mask, c, k, iters)
+    torch.cuda.synchronize()
+    if not (torch.equal(l1, l2) and _same(torch, c1, c2)):
+        raise AssertionError(f"{what}: two calls differ")
+    if not (torch.equal(l1, lw) and _same(torch, c1, cw)):
+        raise AssertionError(f"{what}: differs from the iterated half-step "
+                             f"kernel ({int((l1 != lw).sum())} labels)")
+    if not torch.equal(l1, lp):
+        raise AssertionError(f"{what}: {int((l1 != lp).sum())} labels differ "
+                             "from the plain version")
+    if bool((l1[~mask] != 0).any()):
+        raise AssertionError(f"{what}: masked label != 0")
+    torch.testing.assert_close(c1, cp, rtol=1e-5, atol=1e-5,
+                               msg=lambda m: f"{what}: {m}")
+    err = float((c1 - cp).abs().max()) if c1.numel() else 0.0
+    print(f"{what}: bitwise equal to the iterated half-step kernel and "
+          f"across two calls; labels exact, centers max_abs_err={err:.3e} "
+          f"against the plain version", flush=True)
+    return err
 
 
 def kernel_phase(torch, dev):
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.kmeans import kmeans_assign_cuda
+    """The half-step kernel, then the Lloyd kernel, against their plain
+    versions; returns the kernels line's numbers of both."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.kmeans import kmeans_assign_cuda, kmeans_lloyd_cuda
 
-    measured = None
-    for i, shape in enumerate(TEST_SHAPES + [MAIN_SHAPE]):
+    measured = {}
+    worst = 0.0
+    for i, shape in enumerate(TEST_SHAPES + [MAIN_SHAPE] + LLOYD_EXTRA):
         x, mask, c, act = _inputs(torch, shape, 100 + i, dev)
+        g = torch.Generator(device="cpu").manual_seed(400 + i)
+        k = torch.randint(1, shape[3] + 1, (shape[0],), generator=g,
+                          dtype=torch.int32).to(dev)
+        worst = max(worst, _check_lloyd(torch, shape, x, mask, c, k,
+                                        LLOYD_ITERS))
+        if shape == (3, 50, 2, 7):
+            for iters in (0, 1):
+                worst = max(worst, _check_lloyd(torch, shape, x, mask, c, k,
+                                                iters))
+        if shape in LLOYD_EXTRA:
+            continue
         lk, sk, ck = kmeans_assign_cuda(x, mask, c, act)
         lp, sp, cp = ref.kmeans_assign_ref(x, mask, c, act)
         torch.cuda.synchronize()
@@ -190,22 +288,67 @@ def kernel_phase(torch, dev):
         err = float((sk - sp).abs().max()) if sk.numel() else 0.0
         print(f"kmeans_assign S,N,D,K={shape}: labels/counts exact, "
               f"sums max_abs_err={err:.3e}", flush=True)
-        if shape == MAIN_SHAPE:
-            kernel = lambda: kmeans_assign_cuda(x, mask, c, act)
-            plain = lambda: ref.kmeans_assign_ref(x, mask, c, act)
-            call_ms = _median_ms(torch, kernel)
-            plain_call_ms = _median_ms(torch, plain)
-            ms = _graph_ms(torch, kernel)
-            plain_ms = _graph_ms(torch, plain)
-            bound, bound_by = _bound_ms(shape, mask, act)
-            print(f"kmeans_assign at the service shape, device time per "
-                  f"call (CUDA graph of 50): kernel {ms:.5f} ms, plain "
-                  f"{plain_ms:.5f} ms; one call launched from Python (CUDA "
-                  f"events, median of 50): kernel {call_ms:.5f} ms, plain "
-                  f"{plain_call_ms:.5f} ms; bound {bound:.6f} ms "
-                  f"({bound_by})", flush=True)
-            measured = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound, "bound_by": bound_by}
+        if shape != MAIN_SHAPE:
+            continue
+        # the half-step's entry point, its launches counted
+        kmeans_assign_cuda.launches = 0
+        le, se, ce = ops.kmeans_assign(x, mask, c, act)
+        torch.cuda.synchronize()
+        entry = kmeans_assign_cuda.launches
+        if entry <= 0 or not (torch.equal(le, lk) and torch.equal(se, sk)
+                              and torch.equal(ce, ck)):
+            raise AssertionError("ops.kmeans_assign did not launch the "
+                                 "half-step kernel or differs from it")
+        kernel = lambda: kmeans_assign_cuda(x, mask, c, act)
+        plain = lambda: ref.kmeans_assign_ref(x, mask, c, act)
+        call_ms = _median_ms(torch, kernel)
+        plain_call_ms = _median_ms(torch, plain)
+        ms = _graph_ms(torch, kernel)
+        plain_ms = _graph_ms(torch, plain)
+        bound, bound_by = _bound_ms(shape, mask, act)
+        print(f"kmeans_assign at the service shape, device time per "
+              f"call (CUDA graph of 50): kernel {ms:.5f} ms, plain "
+              f"{plain_ms:.5f} ms; one call launched from Python (CUDA "
+              f"events, median of 50): kernel {call_ms:.5f} ms, plain "
+              f"{plain_call_ms:.5f} ms; bound {bound:.6f} ms "
+              f"({bound_by}); ops.kmeans_assign: {entry} launch", flush=True)
+        measured["kmeans_assign"] = {
+            "launches": entry, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
+
+        lloyd = lambda: kmeans_lloyd_cuda(x, mask, c, k, LLOYD_ITERS)
+        plain = lambda: ref.kmeans_lloyd_ref(x, mask, c, k, LLOYD_ITERS)
+        ms = _graph_ms(torch, lloyd)
+        call_ms = _median_ms(torch, lloyd)
+        plain_ms = _graph_ms(torch, plain, runs=10, replays=5)
+        plain_call_ms = _median_ms(torch, plain, runs=10)
+        bound, bound_by = _lloyd_bound_ms(shape, mask, k, LLOYD_ITERS)
+        # the loop this kernel replaced: 10 half-step launches and their
+        # eager updates, issued from Python
+        loop = lambda: _half_step_loop(torch, x, mask, c, k, LLOYD_ITERS)
+        loop_ms = _graph_ms(torch, loop, runs=10, replays=5)
+        loop_call_ms = _median_ms(torch, loop)
+        print(f"kmeans_lloyd at the service shape, {LLOYD_ITERS} iterations, "
+              f"k from 1 to {shape[3]} (mean {float(k.float().mean()):.1f}): "
+              f"device time per call (CUDA graph) kernel {ms:.5f} ms, plain "
+              f"{plain_ms:.5f} ms; one call launched from Python (CUDA "
+              f"events) kernel {call_ms:.5f} ms, plain {plain_call_ms:.5f} "
+              f"ms; bound {bound:.6f} ms ({bound_by}); the loop of "
+              f"{LLOYD_ITERS} half-step launches and eager updates it "
+              f"replaces: {loop_ms:.5f} ms device time, {loop_call_ms:.5f} "
+              f"ms launched from Python", flush=True)
+        # how the time grows with the active centers: every slot at k = 1
+        # and at k = K, the same pieces
+        by_k = {kk: _graph_ms(torch, lambda kk=kk: kmeans_lloyd_cuda(
+            x, mask, c, torch.full_like(k, kk), LLOYD_ITERS))
+            for kk in (1, shape[3])}
+        print("kmeans_lloyd at the service shape, device time per call with "
+              "every slot at " + ", ".join(f"k={kk}: {v:.5f} ms"
+                                           for kk, v in by_k.items()),
+              flush=True)
+        measured["kmeans_lloyd"] = {"ms": ms, "plain_ms": plain_ms,
+                                    "bound_ms": bound, "bound_by": bound_by}
+    measured["kmeans_lloyd"]["max_abs_err"] = worst
     return measured
 
 
@@ -616,7 +759,7 @@ def end_to_end_phase(torch, dev, cpu_results):
     from repro_torch.data.synthetic import make_fleet
     from repro_torch.kernels.dtw import dtw_cuda
     from repro_torch.kernels.ewma import ewma_scan_cuda
-    from repro_torch.kernels.kmeans import kmeans_assign_cuda
+    from repro_torch.kernels.kmeans import kmeans_assign_cuda, kmeans_lloyd_cuda
     from repro_torch.launch.stream import PhaseClock
 
     cfg = _paper_cfg()
@@ -625,19 +768,24 @@ def end_to_end_phase(torch, dev, cpu_results):
 
     check_rows = CHECK_ROWS
     kmeans_assign_cuda.launches = 0
+    kmeans_lloyd_cuda.launches = 0
     dtw_cuda.launches = 0
     ewma_scan_cuda.launches = 0
     digitize.host_syncs = 0
     krn, t_krn = _serve(torch, cfg, data, device=dev, use_kernel=True,
                         window=WINDOW, clock=clock, dtw_every=DTW_EVERY,
                         check_rows=check_rows)
-    launches = {"kmeans_assign": kmeans_assign_cuda.launches,
+    launches = {"kmeans_lloyd": kmeans_lloyd_cuda.launches,
                 "dtw": dtw_cuda.launches}
     syncs = digitize.host_syncs
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"the service never launched the {name} "
                                  "kernel")
+    if kmeans_assign_cuda.launches:
+        raise AssertionError(f"the service launched the half-step kernel "
+                             f"{kmeans_assign_cuda.launches} times: its Lloyd "
+                             "loops run in the Lloyd kernel")
     if ewma_scan_cuda.launches:
         raise AssertionError("the service launched the ewma kernel: its "
                              "sender normalizes one point at a time")
@@ -674,7 +822,8 @@ def end_to_end_phase(torch, dev, cpu_results):
     split = clock.totals
     print(f"end to end: {SESSIONS} sessions x {POINTS} points, {rounds} "
           f"rounds; "
-          f"k-means kernel launches {launches['kmeans_assign']}, host syncs "
+          f"Lloyd kernel launches {launches['kmeans_lloyd']}, half-step "
+          f"kernel launches 0, host syncs "
           f"{syncs} "
           f"({syncs / max(rounds, 1):.1f} per round + 1 harvest copy); "
           f"ewma kernel launches 0, as in the reference", flush=True)
@@ -759,14 +908,14 @@ def _card_phases(torch, dev, smi, cpu_results) -> int:
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        took = dict(zip(KERNELS, pool.map(timed_load, KERNELS)))
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        took = dict(zip(SOURCES, pool.map(timed_load, SOURCES)))
     print("build: " + ", ".join(f"{k} in {v:.2f} s" for k, v in took.items())
           + f", {time.perf_counter() - t0:.2f} s in all "
           f"({_build.BUILD_ROOT})", flush=True)
 
-    phase("k-means kernel against its plain version")
-    measured = {"kmeans_assign": kernel_phase(torch, dev)}
+    phase("k-means kernels against their plain versions")
+    measured = kernel_phase(torch, dev)
 
     phase("DTW kernel against its plain version")
     measured["dtw"] = dtw_phase(torch, dev)
@@ -776,11 +925,15 @@ def _card_phases(torch, dev, smi, cpu_results) -> int:
 
     phase("end to end")
     launches = end_to_end_phase(torch, dev, cpu_results)
-    # the ewma kernel's launches are its own path's (phase 5): the service
-    # launches it no time, as the reference's does not
-    launches["ewma"] = measured["ewma"].pop("launches")
+    # the half-step's and the ewma kernel's launches are their own entry
+    # points' (phases 3 and 5): the service launches neither
+    for name in ("kmeans_assign", "ewma"):
+        launches[name] = measured[name].pop("launches")
 
     rows = [{"name": "kmeans_assign", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/kmeans_assign.cu",
+             "replaces": "src/repro/kernels/kmeans.py:78"},
+            {"name": "kmeans_lloyd", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/kmeans_assign.cu",
              "replaces": "src/repro/kernels/kmeans.py:78"},
             {"name": "dtw", "route": "cuda",

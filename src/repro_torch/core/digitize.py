@@ -181,36 +181,50 @@ def _lloyd_half_step(coords, mask, centers, center_active):
     return labels, sums, counts
 
 
+def _lloyd_update(centers, sums, counts):
+    """Each center moves to the mean of its rows; an empty cluster keeps its
+    previous position."""
+    counts = counts[..., None]
+    return torch.where(counts > 0, sums / torch.clamp_min(counts, 1.0),
+                       centers)
+
+
+def _lloyd_loop(half, c_init, n: int, iters: int):
+    """``iters`` Lloyd iterations from ``c_init (S, k_max, D)``: the
+    half-step ``half(centers) -> (labels, sums, counts)`` then the update.
+    Returns ``(centers, labels (S, n))``, the labels of the last half-step
+    (zeros when ``iters = 0``)."""
+    centers = c_init
+    labels = torch.zeros((c_init.shape[0], n), dtype=torch.int32,
+                         device=c_init.device)
+    for _ in range(iters):
+        labels, sums, counts = half(centers)
+        centers = _lloyd_update(centers, sums, counts)
+    return centers, labels
+
+
 def masked_kmeans_table(coords, mask, c_init, k, iters: int = 10, *,
                         use_kernel: bool = False):
     """Slot-table batch of independent masked Lloyd problems.
 
     ``coords (S, n, 2)``, ``mask (S, n)``, ``c_init (S, k_max, 2)``,
-    ``k (S,)``.  ``use_kernel`` routes the assign half-step through
-    ``kernels.ops.kmeans_assign`` (the CUDA kernel for CUDA tensors, one
-    launch per iteration for the whole table), which zeroes the labels of
-    masked pieces.  Returns ``(centers, labels)``; empty clusters keep
-    their previous position.
+    ``k (S,)``.  ``use_kernel`` runs the whole loop through
+    ``kernels.ops.kmeans_lloyd`` (for CUDA tensors the Lloyd kernel, one
+    launch for the whole table and every iteration), which zeroes the
+    labels of masked pieces.  Returns ``(centers, labels)``; empty clusters
+    keep their previous position.
     """
-    from repro_torch.kernels import ops  # deferred: ops.ref imports us
+    if use_kernel:
+        from repro_torch.kernels import ops  # deferred: ops.ref imports us
 
-    s, n = coords.shape[0], coords.shape[1]
+        return ops.kmeans_lloyd(coords, mask, c_init, k, iters)
     k_max = c_init.shape[1]
     center_active = (torch.arange(k_max, device=coords.device)[None, :]
                      < k[:, None])
-    centers = c_init
-    labels = torch.zeros((s, n), dtype=torch.int32, device=coords.device)
-    for _ in range(iters):
-        if use_kernel:
-            labels, sums, counts = ops.kmeans_assign(coords, mask, centers,
-                                                     center_active)
-        else:
-            labels, sums, counts = _lloyd_half_step(coords, mask, centers,
-                                                    center_active)
-        counts = counts[..., None]
-        centers = torch.where(counts > 0, sums / torch.clamp_min(counts, 1.0),
-                              centers)
-    return centers, labels
+    return _lloyd_loop(
+        lambda centers: _lloyd_half_step(coords, mask, centers,
+                                         center_active),
+        c_init, coords.shape[1], iters)
 
 
 def masked_kmeans(coords, mask, c_init, k, iters: int = 10):
@@ -285,7 +299,7 @@ def digitizer_table_step(state: DigitizerState, piece, live, *, tol: float,
 
     ``piece (S, 2)``; lanes with ``live=False`` pass through unchanged.
     The k-means runs as one table-level problem (``masked_kmeans_table``),
-    so ``use_kernel=True`` launches each Lloyd half-step once for all slots.
+    so ``use_kernel=True`` launches each Lloyd loop once for all slots.
     Returns ``(state, symbols (S,))`` with symbol 0 for dead lanes.
     """
     s, n_max = state.pieces.shape[0], state.pieces.shape[1]

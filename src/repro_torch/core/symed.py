@@ -11,8 +11,8 @@ Port of ``repro.core.symed``:
   * ``symed_batch`` -- a slab of streams, one key per stream;
   * ``symed_receive_masked_chunk_table`` -- the session table ingests one
     padded, ragged window per slot: per-slot sender scan and wire
-    compaction, then one table-level digitize pass whose Lloyd half-steps
-    can run in the CUDA k-means kernel (``use_kernel=True``);
+    compaction, then one table-level digitize pass whose Lloyd loops can
+    run in the CUDA k-means kernel (``use_kernel=True``);
   * ``symed_receive_finish`` -- close a stream: flush the tail, digitize the
     rest, emit the closing symbol-delta frame, optionally reconstruct.
 
@@ -199,7 +199,7 @@ def symed_receive_masked_chunk_table(
 
     ``windows (S, C)``, ``n_valid (S,)`` valid points per slot (0 = idle
     slot, a no-op).  The sender scan and wire compaction run per slot; the
-    digitize pass runs once for the table, its Lloyd half-steps in the CUDA
+    digitize pass runs once for the table, its Lloyd loops in the CUDA
     kernel when ``use_kernel``.  ``mark(phase)``, when given, is called
     after the sender half (``"sender"``) and after the digitize pass
     (``"digitize"``).  Returns ``(table, info)``.

@@ -12,9 +12,9 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.dtw import dtw_cuda
 from repro_torch.kernels.ewma import ewma_scan_cuda
-from repro_torch.kernels.kmeans import kmeans_assign_cuda
+from repro_torch.kernels.kmeans import kmeans_assign_cuda, kmeans_lloyd_cuda
 
-__all__ = ["ewma_scan", "kmeans_assign", "dtw"]
+__all__ = ["ewma_scan", "kmeans_assign", "kmeans_lloyd", "dtw"]
 
 
 def ewma_scan(ts, alpha, *, force_ref: bool = False):
@@ -39,6 +39,23 @@ def kmeans_assign(x, mask, centers, center_active, *, force_ref: bool = False):
     return kmeans_assign_cuda(x.contiguous(), mask.contiguous(),
                               centers.contiguous(),
                               center_active.contiguous())
+
+
+def kmeans_lloyd(coords, mask, c_init, k, iters: int, *,
+                 force_ref: bool = False):
+    """``iters`` Lloyd iterations (assign, then move each non-empty cluster's
+    center to its mean) for S independent problems, in one kernel launch.
+
+    ``coords (S, N, D) f32``, ``mask (S, N)``, ``c_init (S, K, D) f32``,
+    ``k (S,)`` (centers ``[0, k_s)`` active) -> ``centers (S, K, D) f32``,
+    ``labels (S, N) i32`` of the last iteration (0 on masked rows).
+    """
+    if force_ref or not torch.as_tensor(coords).is_cuda:
+        return ref.kmeans_lloyd_ref(coords, mask, c_init, k, iters)
+    mask = mask if mask.dtype == torch.bool else mask != 0
+    return kmeans_lloyd_cuda(coords.contiguous(), mask.contiguous(),
+                             c_init.contiguous(),
+                             k.to(torch.int32).contiguous(), iters)
 
 
 def dtw(x, y, band=None, *, force_ref: bool = False):

@@ -6,7 +6,7 @@ drives every arrival round through one table step
 (``symed_receive_masked_chunk_table``): ragged arrivals are padded to
 ``window_cap`` with per-slot valid counts, fresh and resumed sessions share
 the same step, idle slots ride along as masked no-ops.  On CUDA the
-digitize pass's Lloyd half-steps run in the hand-written k-means kernel.
+digitize pass's Lloyd loops run in the hand-written k-means kernel.
 
 Wire out: every digitize pass emits a symbol-delta frame ``(new_labels,
 new_piece_endpoints, n_new)``; joining every delta of a session plus its
@@ -160,7 +160,7 @@ class StreamServer:
         shrinks it once occupancy has stayed at or below a quarter of the
         capacity for ``shrink_patience`` consecutive closes.
         Resizes are pure gathers and concatenations of the table's tensors.
-      use_kernel: run the Lloyd half-steps in the CUDA k-means kernel
+      use_kernel: run the Lloyd loops in the CUDA k-means kernel
         (default: on when the table lives on CUDA).
       seed: base PRNG seed for per-session digitizer keys.
       device: where the table lives; ``cuda`` unless ``"cpu"`` is passed.
