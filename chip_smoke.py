@@ -17,9 +17,11 @@ each raising on failure:
    center update, two calls bitwise equal, labels exact and centers within
    rtol=atol=1e-5 of its plain version.  Device times from CUDA graphs;
 4. the DTW kernel against its plain version, bitwise, at the shapes of
-   ``tests/test_kernels.py``, at a length whose diagonals need the global
-   scratch (B=2, N=20000) and at the monitor's shape (B=256 sessions,
-   N=2048 points, full and at band 64); device time from a CUDA graph;
+   ``tests/test_kernels.py``, at a length whose buffers need the global
+   scratch (B=2, N=20000) and at the monitor's four shapes (B=256
+   sessions, N=512, 1024, 1536 and 2048 points, full band) and at band 64;
+   device time from a CUDA graph at those five, each beside its bound, and
+   the monitor's device time per service run (the sum of its four);
 5. the EWMA kernel's entry point, ``kernels.ops.ewma_scan``, on the paper's
    fleet slab (``make_fleet(256, 2048, seed=0)``, alpha 0.01) and the
    z-scores ``normalize.standardize`` makes of it; then the kernel against
@@ -72,12 +74,17 @@ DTW_EVERY = 8  # the monitor fires at 512, 1024, 1536 and 2048 points
 PLAIN_STRIDE = 16  # the plain k-means run serves every 16th session
 CHECK_ROWS = range(0, SESSIONS, SESSIONS // 8)   # held against the CPU port
 ENCODE_ROWS = range(1, SESSIONS, SESSIONS // 4)  # symed_encode, cuda vs CPU
-# (B, N, band): tests/test_kernels.py's DTW cases, a pair whose diagonals
-# overflow shared memory, and the monitor's shape
+# (B, N, band): tests/test_kernels.py's DTW cases, a pair whose buffers
+# overflow shared memory, band 64 and the monitor's shapes: all sessions at
+# each length it fires at, the last of them DTW_MAIN
+DTW_GLOBAL = (2, 20000, None)
 DTW_SHAPES = [(1, 32, None), (4, 150, None), (8, 128, None), (3, 257, None),
               (16, 64, None), (4, 200, 5), (4, 200, 20), (4, 200, 64),
-              (3, 96, 0), (2, 20000, None), (256, 2048, 64)]
-DTW_MAIN = (SESSIONS, POINTS, None)
+              (3, 96, 0), DTW_GLOBAL, (256, 2048, 64)]
+DTW_MONITOR = [(SESSIONS, n, None) for n in range(
+    DTW_EVERY * WINDOW, POINTS + 1, DTW_EVERY * WINDOW)]
+DTW_MAIN = DTW_MONITOR[-1]
+DTW_TIMED = DTW_MONITOR + [(SESSIONS, POINTS, 64)]
 # (B, T, alpha): tests/test_kernels.py's EWMA cases, alpha 0.5 and 1.0, a
 # row whose carry crosses 79 tiles, and benchmarks/kernels_bench.py's slab
 EWMA_SHAPES = ([(b, t, alpha) for b, t in ((1, 64), (3, 300), (8, 1024),
@@ -117,6 +124,20 @@ def _nvcc_version() -> str:
     out = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                          text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[-1]
+
+
+def _ptxas_report(log: Path):
+    """One line per kernel of a build's ``ptxas -v`` report: its registers,
+    static shared memory, stack and spills."""
+    lines, cur = [], None
+    for raw in log.read_text().splitlines():
+        text = raw.split(":", 1)[-1].strip() if "ptxas" in raw else raw.strip()
+        if text.startswith("Compiling entry function"):
+            cur = [text.split("'")[1]]
+            lines.append(cur)
+        elif cur is not None and ("registers" in text or "spill" in text):
+            cur.append(text)
+    return ["; ".join(parts) for parts in lines]
 
 
 def _inputs(torch, shape, seed, dev):
@@ -380,11 +401,18 @@ def _pairs(torch, b, n, seed, dev):
 
 def dtw_phase(torch, dev):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.dtw import dtw_cuda
+    from repro_torch.kernels.dtw import _lib, dtw_cuda
 
+    if _lib().dtw_smem_bytes(DTW_GLOBAL[1]) != 0:
+        raise AssertionError(f"dtw N={DTW_GLOBAL[1]} no longer takes the "
+                             "global-scratch branch")
+    print(f"dtw shared memory per CTA at N={POINTS}: "
+          f"{_lib().dtw_smem_bytes(POINTS)} bytes; N={DTW_GLOBAL[1]} runs "
+          f"over the global scratch", flush=True)
     measured = None
     worst = 0.0
-    for i, (b, n, band) in enumerate(DTW_SHAPES + [DTW_MAIN]):
+    monitor_ms = 0.0
+    for i, (b, n, band) in enumerate(DTW_SHAPES + DTW_MONITOR):
         x, y = _pairs(torch, b, n, 200 + i, dev)
         got = dtw_cuda(x, y, band)
         want = ref.dtw_batch_ref(x, y, band)
@@ -399,18 +427,21 @@ def dtw_phase(torch, dev):
         worst = max(worst, err)
         print(f"dtw B,N,band={(b, n, band)}: bitwise equal to the plain "
               f"version (max_abs_err={err:.3e})", flush=True)
-        if (b, n, band) in (DTW_MAIN, (256, 2048, 64)):
+        if (b, n, band) in DTW_TIMED:
             kernel = lambda: dtw_cuda(x, y, band)
             ms = _graph_ms(torch, kernel, runs=10, replays=5)
             call_ms = _median_ms(torch, kernel, runs=10, warmup=2)
             bound, bound_by = _dtw_bound_ms(b, n, band)
             line = (f"dtw at B={b}, N={n}, band={band}: device time per call "
                     f"(CUDA graph of 10, median of 5 replays) kernel "
-                    f"{ms:.5f} ms; one call launched from Python (CUDA "
-                    f"events, median of 10) {call_ms:.5f} ms; bound "
+                    f"{ms:.5f} ms, {ms / bound:.2f}x its bound "
                     f"{bound:.6f} ms ({bound_by}; {_dtw_cells(b, n, band)} "
                     f"cells; the {2 * n - 1} dependent diagonals are a "
-                    f"latency floor the roofline does not count)")
+                    f"latency floor the roofline does not count); one call "
+                    f"launched from Python (CUDA events, median of 10) "
+                    f"{call_ms:.5f} ms")
+            if (b, n, band) in DTW_MONITOR:
+                monitor_ms += ms
             if (b, n, band) == DTW_MAIN:
                 # warm from the check above; one call is about 2.5 s
                 plain_ms = _median_ms(
@@ -421,6 +452,9 @@ def dtw_phase(torch, dev):
                 measured = {"ms": ms, "plain_ms": plain_ms,
                             "bound_ms": bound, "bound_by": bound_by}
             print(line, flush=True)
+    print(f"dtw: the monitor's {len(DTW_MONITOR)} launches per service run "
+          f"(N={', '.join(str(n) for _, n, _ in DTW_MONITOR)}) take "
+          f"{monitor_ms:.5f} ms of device time", flush=True)
     return {"max_abs_err": worst, **measured}
 
 
@@ -913,6 +947,8 @@ def _card_phases(torch, dev, smi, cpu_results) -> int:
     print("build: " + ", ".join(f"{k} in {v:.2f} s" for k, v in took.items())
           + f", {time.perf_counter() - t0:.2f} s in all "
           f"({_build.BUILD_ROOT})", flush=True)
+    for line in _ptxas_report(_build.build("dtw").with_suffix(".log")):
+        print(f"ptxas dtw: {line}", flush=True)
 
     phase("k-means kernels against their plain versions")
     measured = kernel_phase(torch, dev)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.compress import CompressorState
 from repro_torch.core.digitize import DigitizerState
 from repro_torch.core.normalize import EwmState
@@ -23,8 +24,10 @@ _CLASSES = {cls._fields: cls
                         EwmState)}
 
 
-def receiver_state_from_numpy(tree, device="cpu"):
-    """A numpy tree (see the module doc) -> the port's state on ``device``."""
+def receiver_state_from_numpy(tree, device=None):
+    """A numpy tree (see the module doc) -> the port's state on ``device``
+    (``cuda`` unless told otherwise; raises when CUDA is absent)."""
+    device = resolve_device(device)
     cls = _CLASSES.get(getattr(tree, "_fields", None))
     if cls is None:
         raise TypeError(f"not a receiver-state tree: {type(tree).__name__}")

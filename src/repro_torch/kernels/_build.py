@@ -3,9 +3,11 @@
 Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, under
 ``build/repro_torch_kernels/<hash of the sources>/`` at the root of the
-checkout.  A second call in the same process, or a later process on the same
-sources, reuses the library.  A missing ``nvcc`` or a failed build raises:
-nothing falls back to the plain PyTorch versions.
+checkout, beside the compiler's report (``lib<name>.log``: ``ptxas -v``'s
+registers, shared memory and spills of each kernel).  A second call in the
+same process, or a later process on the same sources, reuses the library.
+A missing ``nvcc`` or a failed build raises: nothing falls back to the
+plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ __all__ = ["build", "load", "check_tensor", "BUILD_ROOT", "CSRC"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _NAME_LOCKS: Dict[str, threading.Lock] = {}
@@ -69,6 +71,7 @@ def build(name: str) -> Path:
         raise RuntimeError(
             f"nvcc failed building {src.name} (exit {proc.returncode}):\n"
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
     return lib
 

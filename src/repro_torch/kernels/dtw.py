@@ -1,8 +1,9 @@
 """Hopper kernel: banded DTW distance of equal-length pairs.
 
-Port of ``repro.kernels.dtw.dtw_pallas``: the anti-diagonal wavefront for a
-batch of pairs, in the CUDA C++ kernel ``csrc/dtw.cu`` (built for
-``sm_90a`` at first use, bound with ctypes).  ``repro_torch.kernels.ref.
+Port of ``repro.kernels.dtw.dtw_pallas``: a tiled wavefront for a batch of
+pairs (one CTA per pair, one warp per tile, lanes passing values by
+shuffle), in the CUDA C++ kernel ``csrc/dtw.cu`` (built for ``sm_90a`` at
+first use, bound with ctypes).  ``repro_torch.kernels.ref.
 dtw_batch_ref`` is its plain PyTorch version, bitwise equal on the card;
 ``repro_torch.kernels.ops.dtw`` dispatches.
 """
@@ -30,6 +31,8 @@ def _lib():
         lib.dtw_launch.restype = _INT
         lib.dtw_smem_bytes.argtypes = [_INT]
         lib.dtw_smem_bytes.restype = ctypes.c_size_t
+        lib.dtw_scratch_floats.argtypes = [_INT]
+        lib.dtw_scratch_floats.restype = ctypes.c_size_t
         _LIB.append(lib)
     return _LIB[0]
 
@@ -59,7 +62,8 @@ def dtw_cuda(x: torch.Tensor, y: torch.Tensor,
     lib = _lib()
     scratch = None
     if lib.dtw_smem_bytes(n) == 0:
-        scratch = torch.empty((b, 3, n), dtype=torch.float32, device=dev)
+        scratch = torch.empty((b, lib.dtw_scratch_floats(n)),
+                              dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dtw_launch(x.data_ptr(), y.data_ptr(), out.data_ptr(),

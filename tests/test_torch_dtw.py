@@ -8,7 +8,10 @@ few cells unfused, one ulp apart).  It is held against
 (``repro.kernels.ops.dtw``) at the shapes of ``tests/test_kernels.py``
 within rtol = atol = 1e-5, the parity contract's DTW tolerance.
 The CUDA kernel runs only on a card (``-m cuda``), where it must be bitwise
-equal to the plain version; that test needs no JAX.
+equal to the plain version; that test needs no JAX.  On the CPU
+``_replay`` walks the kernel's tiled wavefront step by step (tile order,
+lane shuffles, the boundary buffers and corners, skipped out-of-band tiles,
+ragged edges) with small tiles, and is held bitwise to the plain version.
 """
 import numpy as np
 import pytest
@@ -26,8 +29,9 @@ except ImportError:
 needs_jax = pytest.mark.skipif(jm is None, reason="needs the JAX reference")
 
 from repro_torch.core import metrics as tm
+from repro_torch.core.normalize import fma32
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.dtw import dtw_cuda
+from repro_torch.kernels.dtw import _lib, dtw_cuda
 
 FULL = [(1, 32), (4, 150), (8, 128), (3, 257), (16, 64)]
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -38,6 +42,120 @@ def _pair(b, n, seed, noise=0.3):
     x = rng.normal(size=(b, n)).cumsum(1).astype(np.float32)
     y = (x + rng.normal(0, noise, (b, n))).astype(np.float32)
     return x, y
+
+
+def _replay(x, y, band, lanes, rows, cols):
+    """``csrc/dtw.cu``'s traversal on the CPU, with tiles of ``lanes *
+    rows`` rows by ``cols`` columns (the kernel's: 32 * 8 by 128).
+
+    A warp's lanes are one axis of the tensors; ``__shfl_up_sync`` is a
+    shift along it.  Buffer slots the kernel leaves stale (those of skipped
+    tiles) are NaN here, so reading one shows in the result.  Returns the
+    distances and the number of tiles visited.
+    """
+    b, n = x.shape
+    r = n if band is None else min(max(int(band), 0), n)
+    t_rows = lanes * rows
+    n_p, n_q = -(-n // t_rows), -(-n // cols)
+    big = torch.tensor(1e30)
+    nan = float("nan")
+    top = torch.full((b, n), nan)
+    left = torch.full((b, n), nan)
+    corner = torch.full((b, n_p, 3), nan)
+    lane = torch.arange(lanes)
+
+    def in_band(p, q):
+        i0, j0 = p * t_rows, q * cols
+        return i0 - (j0 + cols - 1) <= r and j0 - (i0 + t_rows - 1) <= r
+
+    visited = 0
+    span = t_rows + cols
+    for k in range(n_p + n_q - 1):
+        p_lo, p_hi = max(0, k - n_q + 1), min(n_p - 1, k)
+        # the kernel's closed form of the band's tiles on this diagonal
+        need = k * cols - t_rows + 1 - r
+        lo = max(p_lo, -(-need // span) if need > 0 else 0)
+        hi = min(p_hi, (r + (k + 1) * cols - 1) // span)
+        assert [p for p in range(p_lo, p_hi + 1) if in_band(p, k - p)] \
+            == list(range(lo, hi + 1))
+        for p in range(p_lo, p_hi + 1):
+            q = k - p
+            i0, j0 = p * t_rows, q * cols
+            if not in_band(p, q):
+                top[:, j0:j0 + cols] = nan
+                left[:, i0:i0 + t_rows] = nan
+                corner[:, p, k % 3] = nan
+                continue
+            visited += 1
+            idx = i0 + lane[:, None] * rows + torch.arange(rows)  # (L, R)
+            inrow = idx < n
+            safe = idx.clamp(max=n - 1)
+            xr = torch.where(inrow, x[:, safe], 0.0)
+            cur = big.expand(b, lanes, rows).clone()
+            if q > 0 and in_band(p, q - 1):
+                cur = torch.where(inrow, left[:, safe], big)
+            banded = not (i0 + t_rows - 1 - j0 <= r and j0 + cols - 1 - i0 <= r)
+            up_prev = big.expand(b, lanes).clone()
+            if p == 0 and q == 0:
+                up_prev[:, 0] = 0.0
+            elif p > 0 and q > 0 and in_band(p - 1, q - 1):
+                up_prev[:, 0] = corner[:, p - 1, (k + 1) % 3]
+            has_top = p > 0 and in_band(p - 1, q)
+            c_end = min(cols, n - j0)
+            live = min(lanes, -(-(n - i0) // rows))
+            for st in range(c_end + live - 1):
+                head = (top[:, j0 + st] if has_top and st < c_end
+                        else big.expand(b))
+                up = torch.cat([head[:, None], cur[:, :-1, -1]], dim=1)
+                c = st - lane
+                valid = (c >= 0) & (c < c_end)
+                j = j0 + c.clamp(0, c_end - 1)
+                yj = y[:, j]
+                diag, u = up_prev, up
+                for t in range(rows):
+                    prev = cur[:, :, t].clone()
+                    diff = xr[:, :, t] - yj
+                    v = fma32(diff, diff,
+                              torch.minimum(u, torch.minimum(prev, diag)))
+                    if banded:
+                        v = torch.where((idx[:, t] - j).abs() > r, big, v)
+                    v = torch.where(valid, v, prev)
+                    cur[:, :, t] = v
+                    diag, u = prev, v
+                if valid[-1]:
+                    top[:, int(j[-1])] = cur[:, -1, -1]
+                up_prev = up
+            left[:, idx[inrow]] = cur[:, inrow]
+            corner[:, p, k % 3] = cur[:, -1, -1]
+    return torch.sqrt(left[:, n - 1]), visited
+
+
+TILES = [(4, 1, 8), (4, 3, 12), (32, 8, 128)]  # lanes, rows per lane, cols
+
+
+@pytest.mark.parametrize("lanes,rows,cols", TILES)
+@pytest.mark.parametrize("b,n,band", [(b, n, None) for b, n in FULL]
+                         + [(4, 200, 5), (4, 200, 20), (4, 200, 64),
+                            (3, 96, 0), (2, 150, 7)])
+def test_kernel_traversal_replayed_bitwise(b, n, band, lanes, rows, cols):
+    """The kernel's tile order, boundaries, corners, band skips and ragged
+    edges give the plain version's bits (the card's kernel is held to the
+    same bits by the ``-m cuda`` test below)."""
+    x, y = (torch.from_numpy(a)
+            for a in _pair(b, n, 1000 * b + n + (band or 0)))
+    got, visited = _replay(x, y, band, lanes, rows, cols)
+    want = ref.dtw_batch_ref(x, y, band)
+    assert torch.equal(got, want), (got - want).abs().max()
+    t_rows = lanes * rows
+    tiles = -(-n // t_rows) * -(-n // cols)
+    assert visited == tiles if band is None else visited <= tiles
+    if band is not None and lanes == 4:  # small tiles: the band skips some
+        assert visited < tiles
+    if jm is not None and lanes == 4 and rows == 1:
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray(jops.dtw(jnp.asarray(x.numpy()),
+                                             jnp.asarray(y.numpy()),
+                                             band=band)), **TOL)
 
 
 def _cuda():
@@ -120,10 +238,16 @@ def test_kernel_wrapper_rejects_cpu_tensors():
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,band", [(b, n, None) for b, n in FULL]
                          + [(4, 200, 5), (4, 200, 20), (4, 200, 64),
-                            (3, 96, 0), (2, 20000, None), (256, 2048, None),
-                            (256, 2048, 64), (0, 16, None)])
+                            (3, 96, 0), (2, 20000, None), (256, 512, None),
+                            (256, 1024, None), (256, 1536, None),
+                            (256, 2048, None), (256, 2048, 64),
+                            (0, 16, None)])
 def test_kernel_bitwise_equal_to_plain_on_cuda(b, n, band):
+    """Every test shape, the monitor's four lengths, band 64, and a pair
+    whose buffers overflow shared memory (the global-scratch branch)."""
     name = _cuda()
+    if n == 20000:
+        assert _lib().dtw_smem_bytes(n) == 0 < _lib().dtw_smem_bytes(2048)
     x, y = (torch.from_numpy(a).cuda() for a in _pair(b, n, 7 + n))
     before = dtw_cuda.launches
     got = ops.dtw(x, y, band=band)
@@ -134,3 +258,20 @@ def test_kernel_bitwise_equal_to_plain_on_cuda(b, n, band):
     assert torch.equal(got, want), (
         f"DTW kernel differs from its plain version on {name}: max abs "
         f"{(got - want).abs().max().item() if b else 0.0}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 130])
+def test_kernel_unaligned_inputs_on_cuda(n):
+    """Rows that start off a 16-byte boundary are staged a float at a
+    time; the result is the same bits."""
+    name = _cuda()
+    x, y = _pair(3, n, 11)
+    flat = [torch.zeros(3 * n + 1, device="cuda") for _ in range(2)]
+    xs, ys = (f[1:].view(3, n) for f in flat)
+    xs.copy_(torch.from_numpy(x))
+    ys.copy_(torch.from_numpy(y))
+    got = dtw_cuda(xs, ys)
+    want = ref.dtw_batch_ref(xs, ys)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), name

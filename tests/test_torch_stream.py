@@ -191,7 +191,7 @@ class TestServerParity:
                                       JCFG, table)
         as_np = lambda t: jax.tree.map(np.asarray, t._replace(
             dig=t.dig._replace(key=jax.random.key_data(t.dig.key))))
-        port_table = receiver_state_from_numpy(as_np(table))
+        port_table = receiver_state_from_numpy(as_np(table), device="cpu")
         win = rng.normal(0, 1, (s, WINDOW_CAP)).cumsum(1).astype(np.float32)
         n_valid = np.array([WINDOW_CAP, 5, 0], np.int32)
         ref_next, ref_info = jax_table_step(
