@@ -26,12 +26,14 @@ each raising on failure:
    fleet slab (``make_fleet(256, 2048, seed=0)``, alpha 0.01) and the
    z-scores ``normalize.standardize`` makes of it; then the kernel against
    its plain version at the shapes of ``tests/test_kernels.py``, at alpha
-   0.5 and 1.0, on a row of 79 tiles (B=2, T=20000), at the 64 x 2048
-   slab of ``benchmarks/kernels_bench.py``, on streams offset by 1000 and
-   on the fleet slab: point 0 exact, means within rtol=atol=2e-5, vars
-   within 2e-4 (the offset streams: 1e-4 and 1e-3/1e-2); the plain version
-   on the card bitwise equal to the CPU's on the fleet slab; device time
-   from a CUDA graph at 64 x 2048 and 256 x 2048;
+   0.5 and 1.0, on a row of 10 chunks (B=2, T=20000), at the 64 x 2048
+   slab of ``benchmarks/kernels_bench.py``, at T=2047 (4-byte copies), on
+   rows one float off a 16-byte boundary, on a chunk whose last warps lie
+   past T, on streams offset by 1000 and on the fleet slab: point 0 exact,
+   two calls bitwise equal, means within rtol=atol=2e-5, vars within 2e-4
+   (the offset streams: 1e-4 and 1e-3/1e-2); the plain version on the card
+   bitwise equal to the CPU's on the fleet slab; device time from a CUDA
+   graph at 64 x 2048 and 256 x 2048 beside the bound;
 6. end to end: ``StreamServer`` on cuda with the paper's settings serves 256
    sessions x 2048 points in 64-point windows with the online DTW monitor
    every 8 windows, and closes them, through the Lloyd kernel (and no
@@ -86,11 +88,15 @@ DTW_MONITOR = [(SESSIONS, n, None) for n in range(
 DTW_MAIN = DTW_MONITOR[-1]
 DTW_TIMED = DTW_MONITOR + [(SESSIONS, POINTS, 64)]
 # (B, T, alpha): tests/test_kernels.py's EWMA cases, alpha 0.5 and 1.0, a
-# row whose carry crosses 79 tiles, and benchmarks/kernels_bench.py's slab
+# row whose carry crosses 10 chunks of 2048 points, benchmarks/
+# kernels_bench.py's slab, the fleet's width with T % 4 != 0 (4-byte copies)
+# and a second chunk whose last six warps lie wholly past T
 EWMA_SHAPES = ([(b, t, alpha) for b, t in ((1, 64), (3, 300), (8, 1024),
                                            (17, 257), (256, 96))
                 for alpha in (0.01, 0.05, 0.2, 0.5, 1.0)]
-               + [(2, 20000, 0.02), (64, 2048, 0.02)])
+               + [(2, 20000, 0.02), (64, 2048, 0.02), (256, 2047, 0.01),
+                  (4, 2348, 0.05)])
+EWMA_OFFSET = (3, 2048, 0.05)  # rows one float off a 16-byte boundary
 EWMA_LARGE = (2, 512, 0.05)  # streams offset by 1000, as in the tests
 EWMA_ALPHA = 0.01            # the paper's, on make_fleet(SESSIONS, POINTS)
 EWMA_TOL = ({"rtol": 2e-5, "atol": 2e-5}, {"rtol": 2e-4, "atol": 2e-4})
@@ -525,10 +531,15 @@ def ewma_phase(torch, dev):
     b, t, alpha = EWMA_LARGE
     cases.append((1000.0 + 5.0 * torch.randn(b, t, generator=g), alpha,
                   EWMA_LARGE_TOL))
+    b, t, alpha = EWMA_OFFSET
+    offset = torch.randn(b * t + 1, generator=g).to(dev)[1:].view(b, t)
+    cases.append((offset, alpha, EWMA_TOL))
     timed = []  # (alpha, slab) pairs to time: kernels_bench.py's, the fleet
     for ts, alpha, tol in cases:
         ts = ts.to(dev)
-        what = f"B,T={tuple(ts.shape)} alpha={alpha}"
+        copies = ("16-byte" if ts.shape[1] % 4 == 0 and ts.data_ptr() % 16 == 0
+                  else "4-byte")
+        what = f"B,T={tuple(ts.shape)} alpha={alpha} ({copies} copies)"
         got = ewma_scan_cuda(ts, alpha)
         again = ewma_scan_cuda(ts, alpha)
         want = ref.ewma_scan_ref(ts, alpha)
@@ -688,7 +699,8 @@ def _encode(torch, ts, cfg, i, dev):
     from repro_torch.core import prng
     from repro_torch.core.symed import symed_encode
 
-    out = symed_encode(torch.from_numpy(ts).to(dev), cfg, prng.key(i, dev))
+    out = symed_encode(torch.from_numpy(ts), cfg, prng.key(i, dev),
+                       device=dev)
     return {k: out[k].cpu().numpy() for k in
             ("n_pieces", "pieces_len", "symbols", "re_pieces", "re_symbols")}
 
@@ -947,8 +959,9 @@ def _card_phases(torch, dev, smi, cpu_results) -> int:
     print("build: " + ", ".join(f"{k} in {v:.2f} s" for k, v in took.items())
           + f", {time.perf_counter() - t0:.2f} s in all "
           f"({_build.BUILD_ROOT})", flush=True)
-    for line in _ptxas_report(_build.build("dtw").with_suffix(".log")):
-        print(f"ptxas dtw: {line}", flush=True)
+    for name in ("dtw", "ewma"):
+        for line in _ptxas_report(_build.build(name).with_suffix(".log")):
+            print(f"ptxas {name}: {line}", flush=True)
 
     phase("k-means kernels against their plain versions")
     measured = kernel_phase(torch, dev)

@@ -28,6 +28,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import prng
 from repro_torch.core.compress import (
     CompressorState, compress_stream, compressor_finalize, compressor_init,
@@ -357,15 +358,18 @@ def _receive(events, keys, ts, n_points: int, cfg: SymEDConfig, *,
     return out
 
 
-def symed_encode(ts, cfg: SymEDConfig, key,
-                 reconstruct: bool = True) -> Dict[str, torch.Tensor]:
+def symed_encode(ts, cfg: SymEDConfig, key, reconstruct: bool = True,
+                 device=None) -> Dict[str, torch.Tensor]:
     """Encode one stream ``ts (T,)`` in one shot: sender, wire, receiver.
 
     ``key (2,)`` seeds the digitizer.  ``reconstruct=True`` adds
     ``recon_pieces``/``recon_symbols`` (the stream rebuilt from its pieces
     and from its symbols) and their DTW errors ``re_pieces``/``re_symbols``.
+    ``device``: where it runs, ``cuda`` unless ``"cpu"`` is passed
+    (``repro_torch.resolve_device``); the stream and the key move there.
     """
-    ts = torch.as_tensor(ts, dtype=torch.float32)[None]
+    dev = resolve_device(device)
+    ts = torch.as_tensor(ts, dtype=torch.float32, device=dev)[None]
     events = compress_stream(ts, tol=cfg.tol, len_max=cfg.len_max,
                              alpha=cfg.alpha)  # one stream: its own rounding
     out = _receive(events, _key1(key, ts.device), ts, ts.shape[-1], cfg,
@@ -389,17 +393,20 @@ def symed_encode_chunk(ts_chunk, cfg: SymEDConfig,
 
 
 def symed_finish(events: Dict[str, torch.Tensor], state: CompressorState,
-                 cfg: SymEDConfig, key, ts,
-                 reconstruct: bool = True) -> Dict[str, torch.Tensor]:
+                 cfg: SymEDConfig, key, ts, reconstruct: bool = True,
+                 device=None) -> Dict[str, torch.Tensor]:
     """Close a chunked stream: flush the open segment, wire-compact,
     digitize.
 
     ``events`` are the ``symed_encode_chunk`` outputs joined along the step
     axis (one stream, ``(T,)``); ``ts`` is the whole raw stream (only
     ``ts[0]`` enters the wire; the DTW errors are scored against it).  The
-    output dict matches ``symed_encode``'s.
+    output dict matches ``symed_encode``'s.  ``device`` as for
+    ``symed_encode``; the events, the state, the key and ``ts`` move there.
     """
-    ts = torch.as_tensor(ts, dtype=torch.float32)
+    dev = resolve_device(device)
+    ts = torch.as_tensor(ts, dtype=torch.float32, device=dev)
+    events, state = _to_device(events, dev), _to_device(state, dev)
     joined = {**{k: v[None] for k, v in events.items()},
               "tail": _batch1(compressor_finalize(state))}
     out = _receive(joined, _key1(key, ts.device), ts[None],
@@ -407,15 +414,17 @@ def symed_finish(events: Dict[str, torch.Tensor], state: CompressorState,
     return _unbatch1(out)
 
 
-def symed_batch(ts, cfg: SymEDConfig, key,
-                reconstruct: bool = True) -> Dict[str, torch.Tensor]:
+def symed_batch(ts, cfg: SymEDConfig, key, reconstruct: bool = True,
+                device=None) -> Dict[str, torch.Tensor]:
     """A fleet slab ``ts (B, T)``; the digitizer keys are ``split(key, B)``.
 
     The outputs carry a leading ``B`` axis.  The sender rounds EWMV as the
     reference's vmapped program does: the single-stream form for at most
-    three streams, the batched form for more.
+    three streams, the batched form for more.  ``device`` as for
+    ``symed_encode``.
     """
-    ts = torch.as_tensor(ts, dtype=torch.float32)
+    ts = torch.as_tensor(ts, dtype=torch.float32,
+                         device=resolve_device(device))
     b = ts.shape[0]
     events = compress_stream(ts, tol=cfg.tol, len_max=cfg.len_max,
                              alpha=cfg.alpha, single=b <= 3)
@@ -426,6 +435,15 @@ def symed_batch(ts, cfg: SymEDConfig, key,
 
 def _key1(key, device) -> torch.Tensor:
     return prng.as_key(key, device).reshape(1, 2)
+
+
+def _to_device(tree, device):
+    """A tensor, or a dict or NamedTuple of them (nested), on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_to_device(v, device) for v in tree))
+    return torch.as_tensor(tree).to(device)
 
 
 def symbols_to_string(labels, n_pieces) -> str:

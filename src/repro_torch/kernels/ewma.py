@@ -3,7 +3,8 @@
 Port of ``repro.kernels.ewma.ewma_scan_pallas``: the paper's damped-window
 mean and variance (Eq. 1-2) over ``(B, T)``, in the CUDA C++ kernel
 ``csrc/ewma.cu`` (built for ``sm_90a`` at first use, bound with ctypes): a
-warp scan over composed affine maps, one warp per row.
+two-level scan over composed affine maps, one CTA of 8 warps per row, a
+shuffle scan in each warp and the warps' maps composed in warp order.
 ``repro_torch.kernels.ref.ewma_scan_ref`` is its plain PyTorch version;
 ``repro_torch.kernels.ops.ewma_scan`` dispatches.  The sender does not use
 it: ``compress.compressor_step`` normalizes one point at a time.

@@ -1,0 +1,73 @@
+"""Shared argparse surface for the port's launch CLIs.
+
+Port of ``repro.launch.cli``: the same flags, defaults and checks, and the
+same error messages letter for letter, so that the port's CLIs accept and
+reject what the reference's accept and reject.  Only the groups and checks
+of flags that a port CLI mounts are here: ``--min-slots`` and
+``--pretrace`` wait for the autoscale floor and a per-capacity CUDA graph,
+``--devices``, ``--streams`` and the metrics flags for the parts of the
+reference that use them.
+"""
+from __future__ import annotations
+
+import argparse
+
+__all__ = ["add_symed_args", "add_slot_table_args", "validate_shared_args"]
+
+
+def add_symed_args(ap: argparse.ArgumentParser) -> None:
+    """The compressor/digitizer knobs every driver threads into SymEDConfig,
+    and the seed."""
+    ap.add_argument("--tol", type=float, default=0.5,
+                    help="compression tolerance (paper's tol)")
+    ap.add_argument("--alpha", type=float, default=0.01,
+                    help="digitizer EWMA smoothing in (0, 1]")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="base seed: synthetic data + per-session "
+                         "digitizer keys")
+
+
+def add_slot_table_args(ap: argparse.ArgumentParser) -> None:
+    """The resident ``StreamServer`` table shape."""
+    ap.add_argument("--max-slots", type=int, default=4,
+                    help="resident slot-table capacity")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="grow/shrink the slot table between steps "
+                         "(power-of-two ladder from 1 slot)")
+    ap.add_argument("--evict", action="store_true",
+                    help="LRU-evict when sessions exceed slots")
+    ap.add_argument("--digitize-every", type=int, default=1,
+                    help="digitize cadence in ingest windows")
+    ap.add_argument("--shrink-patience", type=int, default=3,
+                    help="consecutive low-occupancy ticks before the table "
+                         "walks down the ladder (1: shrink immediately)")
+
+
+def validate_shared_args(ap: argparse.ArgumentParser, args) -> None:
+    """Fail fast (exit 2 via ``ap.error``) before any torch work.
+
+    Checks every shared flag the namespace carries (``getattr`` guards), in
+    the reference's order and with its messages.
+    """
+    def has(name):
+        return getattr(args, name, None) is not None
+
+    if has("sessions") and args.sessions < 1:
+        ap.error(f"--sessions must be >= 1, got {args.sessions}")
+    if has("length") and args.length < 2:
+        ap.error(f"--length must be >= 2, got {args.length}")
+    if has("window"):
+        if args.window < 1:
+            ap.error(f"--window must be >= 1, got {args.window}")
+        if has("length") and args.window > args.length:
+            ap.error(f"--window {args.window} exceeds --length {args.length}")
+    if has("digitize_every") and args.digitize_every < 0:
+        ap.error(f"--digitize-every must be >= 0, got {args.digitize_every}")
+    if has("tol") and args.tol <= 0:
+        ap.error(f"--tol must be > 0, got {args.tol}")
+    if has("alpha") and not 0 < args.alpha <= 1:
+        ap.error(f"--alpha must be in (0, 1], got {args.alpha}")
+    if has("max_slots") and args.max_slots < 1:
+        ap.error(f"--max-slots must be >= 1, got {args.max_slots}")
+    if has("shrink_patience") and args.shrink_patience < 1:
+        ap.error(f"--shrink-patience must be >= 1, got {args.shrink_patience}")

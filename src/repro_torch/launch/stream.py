@@ -584,6 +584,8 @@ def _round_robin(server: StreamServer, data: np.ndarray, window: int):
 
 def main(argv=None):
     from repro_torch.data.synthetic import make_fleet
+    from repro_torch.launch.cli import (
+        add_slot_table_args, add_symed_args, validate_shared_args)
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--sessions", type=int, default=6,
@@ -591,18 +593,14 @@ def main(argv=None):
     ap.add_argument("--length", type=int, default=384)
     ap.add_argument("--window", type=int, default=48,
                     help="arrival window cap (ragged arrivals are padded)")
-    ap.add_argument("--max-slots", type=int, default=4)
-    ap.add_argument("--evict", action="store_true",
-                    help="LRU-evict when the slot table is full")
-    ap.add_argument("--autoscale", action="store_true",
-                    help="grow/shrink the slot table on a power-of-two ladder")
     ap.add_argument("--dtw-every", type=int, default=0,
                     help="online DTW monitor cadence in windows (0: off)")
-    ap.add_argument("--tol", type=float, default=0.5)
-    ap.add_argument("--alpha", type=float, default=0.01)
-    ap.add_argument("--seed", type=int, default=0)
+    add_slot_table_args(ap)
+    add_symed_args(ap)
     ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
     args = ap.parse_args(argv)
+    # the reference's checks and messages, before any torch work
+    validate_shared_args(ap, args)
     if args.dtw_every < 0:
         ap.error(f"--dtw-every must be >= 0, got {args.dtw_every}")
     if args.sessions > args.max_slots and not args.evict:
@@ -612,10 +610,12 @@ def main(argv=None):
     cfg = SymEDConfig(tol=args.tol, alpha=args.alpha, n_max=256, k_max=32,
                       len_max=256)
     server = StreamServer(cfg, max_sessions=args.max_slots,
-                          window_cap=args.window, evict_idle=args.evict,
-                          dtw_every=args.dtw_every,
-                          autoscale=args.autoscale, seed=args.seed,
-                          device=args.device)
+                          window_cap=args.window,
+                          digitize_every_k=args.digitize_every,
+                          evict_idle=args.evict, dtw_every=args.dtw_every,
+                          autoscale=args.autoscale,
+                          shrink_patience=args.shrink_patience,
+                          seed=args.seed, device=args.device)
     data = make_fleet(args.sessions, args.length, seed=args.seed)
     t0 = time.perf_counter()
     closed = _round_robin(server, data, args.window)

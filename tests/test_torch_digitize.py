@@ -180,7 +180,8 @@ def test_symed_encode_bitwise(kind, seed):
     a = jax_encode(jnp.asarray(ts), JaxConfig(**params), key,
                    reconstruct=False)
     b = symed_encode(torch.from_numpy(ts), SymEDConfig(**params),
-                     prng.as_key(jax.random.key_data(key)), reconstruct=False)
+                     prng.as_key(jax.random.key_data(key)), reconstruct=False,
+                     device="cpu")
     assert set(a) == set(b)
     for name in a:
         np.testing.assert_array_equal(b[name].numpy(), np.asarray(a[name]),

@@ -7,12 +7,15 @@ interpret mode (``repro.kernels.ops.ewma_scan``) at the shapes of
 ``tests/test_kernels.py`` within its tolerances (rtol = atol = 2e-5 on the
 means, 2e-4 on the vars), and bitwise against ``repro.kernels.ref.
 ewma_scan_ref`` on a fleet slab.  The CUDA kernel composes the steps as
-affine maps across a warp, so it rounds the carries at lane and tile
-boundaries differently: ``test_scan_order_within_tolerance`` replays that
-order here with exact fused multiply-adds, and on a card (``-m cuda``) the
-kernel itself is held to the plain version within the same tolerances.
-Those tests need no JAX.
+affine maps across the lanes of a warp and the warps of a CTA, so it
+rounds the carries at lane, warp and chunk boundaries differently:
+``test_scan_order_within_tolerance`` replays that order here with exact
+fused multiply-adds, and on a card (``-m cuda``) the kernel itself is held
+to the plain version within the same tolerances and to the replay bit for
+bit.  Those tests need no JAX.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -152,9 +155,22 @@ def test_wrapper_rejects_before_any_build(case, monkeypatch):
     assert ewma_scan_cuda.launches == before
 
 
+def _kernel_constants():
+    """``kPerLane`` and ``kWarps`` as ``csrc/ewma.cu`` declares them, so the
+    replay below follows the kernel's own geometry."""
+    src = (_build.CSRC / "ewma.cu").read_text()
+    found = dict(re.findall(r"constexpr int (kPerLane|kWarps) = (\d+);", src))
+    return int(found["kPerLane"]), int(found["kWarps"])
+
+
+PER_LANE, WARPS = _kernel_constants()
+CHUNK = 32 * PER_LANE * WARPS
+
+
 def _shift(x, off):
-    """Lane ``l`` takes lane ``l - off``'s value (``__shfl_up_sync``)."""
-    return torch.cat([x[:, :off], x[:, :-off]], dim=1)
+    """Lane ``l`` takes lane ``l - off``'s value (``__shfl_up_sync``); the
+    lanes are the last axis."""
+    return torch.cat([x[..., :off], x[..., :-off]], dim=-1)
 
 
 def _scan_maps(A, B):
@@ -167,26 +183,32 @@ def _scan_maps(A, B):
 
 
 def _pass(x, carry, step, p, valid):
-    """One pass of a tile: local maps, warp scan, exact walk from each
-    lane's start value.  ``x (R, 32, 8)``; ``step(state, x)`` is the
-    kernel's step, ``p`` its factor of the state."""
-    A, B = torch.ones(x.shape[:2]), torch.zeros(x.shape[:2])
-    for k in range(8):
-        on = valid[:, k]
-        B = torch.where(on, step(B, x[:, :, k]), B)
+    """One pass over a chunk: the lanes' maps, the warp scan, the warps'
+    maps applied in warp order to the chunk's carry-in, then each lane's
+    exact walk from its start value.  ``x (R, W, 32, P)``; ``step(state,
+    x)`` is the kernel's step, ``p`` its factor of the state."""
+    A, B = torch.ones(x.shape[:3]), torch.zeros(x.shape[:3])
+    for k in range(x.shape[-1]):
+        on = valid[..., k]
+        B = torch.where(on, step(B, x[..., k]), B)
         A = torch.where(on, p * A, A)
     A, B = _scan_maps(A, B)
-    s = fma32(_shift(A, 1), carry[:, None].expand_as(A), _shift(B, 1))
-    s[:, 0] = carry
+    starts = [carry]  # warp w's start: warps 0..w-1 applied to the carry
+    for u in range(x.shape[1] - 1):
+        starts.append(fma32(A[:, u, -1], starts[-1], B[:, u, -1]))
+    start = torch.stack(starts, dim=1)[..., None].expand_as(A)
+    s = fma32(_shift(A, 1), start, _shift(B, 1))
+    s[..., 0] = start[..., 0]
     out = torch.empty_like(x)
-    for k in range(8):
-        s = torch.where(valid[:, k], step(s, x[:, :, k]), s)
-        out[:, :, k] = s
-    return out, s[:, -1].clone()
+    for k in range(x.shape[-1]):
+        s = torch.where(valid[..., k], step(s, x[..., k]), s)
+        out[..., k] = s
+    return out
 
 
-def _kernel_order(ts, alpha):
-    """``csrc/ewma.cu``'s arithmetic in its order, on the CPU."""
+def _kernel_order(ts, alpha, per_lane=PER_LANE, warps=WARPS):
+    """``csrc/ewma.cu``'s arithmetic in its order, on the CPU, with
+    ``warps`` warps of 32 lanes of ``per_lane`` points per chunk."""
     a, b = ewm_coeffs(alpha)
 
     def mean_step(m, t):
@@ -196,29 +218,41 @@ def _kernel_order(ts, alpha):
         return fma32(b, v, q)
 
     rows, n = ts.shape
+    chunk = 32 * per_lane * warps
     cm, cv = ts[:, 0].clone(), torch.ones(rows)
-    means, vars_ = [], []
-    for tile in range(0, n, 256):
-        t = torch.zeros(rows, 256)
-        t[:, : min(256, n - tile)] = ts[:, tile: tile + 256]
-        t = t.view(rows, 32, 8)
-        j = tile + torch.arange(256).view(32, 8)
+    means, vars_ = torch.empty(rows, n), torch.empty(rows, n)
+    for c0 in range(0, n, chunk):
+        width = min(chunk, n - c0)
+        t = torch.zeros(rows, chunk)
+        t[:, :width] = ts[:, c0: c0 + width]
+        t = t.view(rows, warps, 32, per_lane)
+        j = c0 + torch.arange(chunk).view(warps, 32, per_lane)
         valid = (j > 0) & (j < n)
-        m, cm = _pass(t, cm, mean_step, b, valid)
+        m = _pass(t, cm, mean_step, b, valid)
         d = t - m
-        v, cv = _pass((d * d) * a, cv, var_step, b, valid)
-        means.append(m.reshape(rows, 256))
-        vars_.append(v.reshape(rows, 256))
-    return torch.cat(means, 1)[:, :n], torch.cat(vars_, 1)[:, :n]
+        v = _pass((d * d) * a, cv, var_step, b, valid)
+        m, v = m.reshape(rows, chunk), v.reshape(rows, chunk)
+        means[:, c0: c0 + width] = m[:, :width]
+        vars_[:, c0: c0 + width] = v[:, :width]
+        cm, cv = m[:, -1], v[:, -1]  # used only after a full chunk
+    return means, vars_
 
 
-@pytest.mark.parametrize("b,t,alpha,loc", [
-    (17, 257, 0.01, 0.0), (3, 700, 0.05, 0.0), (3, 300, 0.5, 0.0),
-    (3, 300, 1.0, 0.0), (2, 600, 0.05, 1000.0)])
+# (B, T, alpha, loc): the first five since the first kernel; then a T that
+# is not a multiple of 4 (the kernel's 4-byte path), a chunk whose last
+# warps lie wholly past T, and a row of three chunks
+ORDER_CASES = [(17, 257, 0.01, 0.0), (3, 700, 0.05, 0.0), (3, 300, 0.5, 0.0),
+               (3, 300, 1.0, 0.0), (2, 600, 0.05, 1000.0),
+               (3, 1001, 0.02, 0.0), (4, CHUNK + 300, 0.05, 0.0),
+               (2, 2 * CHUNK + 777, 0.01, 0.0)]
+
+
+@pytest.mark.parametrize("b,t,alpha,loc", ORDER_CASES)
 def test_scan_order_within_tolerance(b, t, alpha, loc):
-    """The kernel's carries, composed across lanes and tiles, stay within
-    the parity contract's EWMA tolerances of the sequential scan, for every
-    alpha (no alpha <= 0.2 limit as in the Pallas kernel's closed form)."""
+    """The kernel's carries, composed across lanes, warps and chunks, stay
+    within the parity contract's EWMA tolerances of the sequential scan,
+    for every alpha (no alpha <= 0.2 limit as in the Pallas kernel's closed
+    form)."""
     ts = torch.from_numpy(_normal(b, t, 11 + t, loc=loc))
     m, v = _kernel_order(ts, alpha)
     pm, pv = ref.ewma_scan_ref(ts, alpha)
@@ -226,6 +260,24 @@ def test_scan_order_within_tolerance(b, t, alpha, loc):
     large = loc != 0.0
     _close(m, pm, LARGE_MEAN_TOL if large else MEAN_TOL, "means")
     _close(v, pv, LARGE_VAR_TOL if large else VAR_TOL, "vars")
+
+
+@pytest.mark.parametrize("per_lane,warps", [(4, 2), (8, 1), (4, 8)])
+def test_scan_order_other_geometries(per_lane, warps):
+    """The replay at smaller chunks (256 to 1024 points), so that the warp
+    and chunk carries are crossed many times at a short T, stays within
+    tolerance; and warps wholly past T, which apply the identity map, change
+    no bit: one chunk of 2 warps gives what one of 8 gives."""
+    ts = torch.from_numpy(_normal(3, 1500, 5))
+    m, v = _kernel_order(ts, 0.05, per_lane, warps)
+    pm, pv = ref.ewma_scan_ref(ts, 0.05)
+    _close(m, pm, MEAN_TOL, "means")
+    _close(v, pv, VAR_TOL, "vars")
+    assert torch.equal(m[:, 0], ts[:, 0]) and bool((v[:, 0] == 1.0).all())
+    short = ts[:, : 32 * per_lane * 2 - 5]
+    for got, want in zip(_kernel_order(short, 0.05, per_lane, 2),
+                         _kernel_order(short, 0.05, per_lane, 8)):
+        assert torch.equal(got, want)
 
 
 def _on_card(ts, alpha, name, mean_tol=MEAN_TOL, var_tol=VAR_TOL):
@@ -248,7 +300,8 @@ def _on_card(ts, alpha, name, mean_tol=MEAN_TOL, var_tol=VAR_TOL):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,alpha", [
     (b, t, alpha) for b, t in SHAPES for alpha in ALPHAS + [0.5, 1.0]]
-    + [(3, 1, 0.02), (2, 20000, 0.02), (64, 2048, 0.02)])
+    + [(3, 1, 0.02), (2, 20000, 0.02), (64, 2048, 0.02)]
+    + [(b, t, alpha) for b, t, alpha, _ in ORDER_CASES[5:]])
 def test_kernel_matches_plain_on_cuda(b, t, alpha):
     name = _cuda()
     ts = torch.from_numpy(_normal(b, t, 1000 * b + t)).cuda()
@@ -280,3 +333,32 @@ def test_kernel_edges_on_cuda():
         ewma_scan_cuda(ts.double(), 0.05)
     with pytest.raises(ValueError, match="contiguous"):
         ewma_scan_cuda(ts.t(), 0.05)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,alpha,loc", ORDER_CASES + [
+    (2, 20000, 0.02, 0.0), (64, 2048, 0.02, 0.0), (256, 2048, 0.01, 0.0)])
+def test_kernel_bitwise_equal_to_replay_on_cuda(b, t, alpha, loc):
+    """The kernel gives the CPU replay's bits: the replay is its order."""
+    name = _cuda()
+    ts = torch.from_numpy(_normal(b, t, 11 + t, loc=loc))
+    m, v = ewma_scan_cuda(ts.cuda(), alpha)
+    rm, rv = _kernel_order(ts, alpha)
+    assert torch.equal(m.cpu(), rm), f"means on {name}"
+    assert torch.equal(v.cpu(), rv), f"vars on {name}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [2048, 2050, CHUNK + 300])
+def test_kernel_unaligned_rows_on_cuda(t):
+    """Rows that start off a 16-byte boundary (a contiguous view one float
+    into its storage) take the 4-byte copies; the result is the same bits
+    as from an aligned copy of the same values."""
+    name = _cuda()
+    flat = torch.from_numpy(_normal(1, 3 * t + 1, t)).reshape(-1).cuda()
+    ts = flat[1:].view(3, t)
+    assert ts.is_contiguous() and ts.data_ptr() % 16 != 0
+    m, v = ewma_scan_cuda(ts, 0.05)
+    am, av = ewma_scan_cuda(ts.clone(), 0.05)
+    assert torch.equal(m, am) and torch.equal(v, av), name
+    _on_card(ts, 0.05, name)

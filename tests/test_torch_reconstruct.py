@@ -163,12 +163,17 @@ def _assert_bitwise(a, b, ctx):
                                       err_msg=f"{ctx}: {name}")
 
 
+def _encode_cpu(ts, tkey):
+    """The port's own one-shot encode of ``ts``, on the CPU."""
+    return ts_.symed_encode(torch.from_numpy(ts), CFG, tkey, device="cpu")
+
+
 @pytest.mark.parametrize("kind,seed", [(k, s) for s, k in enumerate(KINDS)])
 def test_symed_encode_reconstruct(kind, seed):
     ts = make_stream(np.random.default_rng(seed), 240, kind)
     jkey, tkey = _key(seed)
     want = js.symed_encode(jnp.asarray(ts), JCFG, jkey)
-    got = ts_.symed_encode(torch.from_numpy(ts), CFG, tkey)
+    got = ts_.symed_encode(torch.from_numpy(ts), CFG, tkey, device="cpu")
     _assert_outputs(want, got, f"symed_encode {kind}")
     for name in SCORES:
         assert 0.0 <= float(got[name]) < 1e10, name
@@ -187,7 +192,7 @@ def test_symed_encode_single_stream_rounding():
         jkey, tkey = _key(seed)
         want = js.symed_encode(jnp.asarray(ts), JaxConfig(**cfg), jkey)
         got = ts_.symed_encode(torch.from_numpy(ts), ts_.SymEDConfig(**cfg),
-                               tkey)
+                               tkey, device="cpu")
         _assert_outputs(want, got, f"crafted {seed}")
 
 
@@ -209,9 +214,10 @@ def test_chunked_finish_equals_reference_and_one_shot(splits):
         {k: jnp.concatenate([e[k] for e in jev]) for k in jev[0]}, jstate,
         JCFG, jkey, jnp.asarray(ts))
     got = ts_.symed_finish({k: torch.cat([e[k] for e in tev]) for k in tev[0]},
-                           tstate, CFG, tkey, torch.from_numpy(ts))
+                           tstate, CFG, tkey, torch.from_numpy(ts),
+                           device="cpu")
     _assert_outputs(want, got, f"symed_finish {splits}")
-    _assert_bitwise(got, ts_.symed_encode(torch.from_numpy(ts), CFG, tkey),
+    _assert_bitwise(got, _encode_cpu(ts, tkey),
                     "chunked vs one-shot")
 
 
@@ -226,8 +232,9 @@ def test_one_point_opening_window():
     assert first["emit"].shape == (1,) and not bool(first["emit"][0])
     state, rest = ts_.symed_encode_chunk(torch.from_numpy(ts[1:]), CFG, state)
     got = ts_.symed_finish({k: torch.cat([first[k], rest[k]]) for k in first},
-                           state, CFG, tkey, torch.from_numpy(ts))
-    _assert_bitwise(got, ts_.symed_encode(torch.from_numpy(ts), CFG, tkey),
+                           state, CFG, tkey, torch.from_numpy(ts),
+                           device="cpu")
+    _assert_bitwise(got, _encode_cpu(ts, tkey),
                     "one-point opening window")
     _, jfirst = js.symed_encode_chunk(jnp.asarray(ts[:1]), JCFG)
     assert jfirst["emit"].shape == (0,)
@@ -256,7 +263,7 @@ def test_receive_finish_reconstruct(kind, seed):
     want = js.symed_receive_finish(jst, JCFG, jnp.asarray(ts), True)
     got = ts_.symed_receive_finish(tst, CFG, torch.from_numpy(ts), True)
     _assert_outputs(want, got, "symed_receive_finish")
-    _assert_bitwise(got, ts_.symed_encode(torch.from_numpy(ts), CFG, tkey),
+    _assert_bitwise(got, _encode_cpu(ts, tkey),
                     "streaming vs one-shot")
     with pytest.raises(ValueError, match="requires the raw stream"):
         ts_.symed_receive_finish(tst, CFG, reconstruct=True)
@@ -269,9 +276,9 @@ def test_symed_batch(b):
     slab = make_fleet(b, 160, seed=b)
     jkey, tkey = _key(40 + b)
     want = js.symed_batch(jnp.asarray(slab), JCFG, jkey)
-    got = ts_.symed_batch(torch.from_numpy(slab), CFG, tkey)
+    got = ts_.symed_batch(torch.from_numpy(slab), CFG, tkey, device="cpu")
     _assert_outputs(want, got, f"symed_batch B={b}")
     no_rec = ts_.symed_batch(torch.from_numpy(slab), CFG, tkey,
-                             reconstruct=False)
+                             reconstruct=False, device="cpu")
     for name, val in no_rec.items():
         np.testing.assert_array_equal(val.numpy(), got[name].numpy())

@@ -351,7 +351,7 @@ class TestPortContract:
             pos += n
         res = server.close("s")
         whole = symed_encode(torch.from_numpy(ts), CFG, torch.tensor([0, 77]),
-                             reconstruct=False)
+                             reconstruct=False, device="cpu")
         n = int(whole["n_pieces"])
         labels = np.concatenate([d["labels"] for d in deltas]
                                 + [res["delta"]["labels"]])
