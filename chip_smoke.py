@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of SymED on one GPU and check it.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``.  Six phases,
+Run from the root of a checkout: ``python3 chip_smoke.py``.  Seven phases,
 each raising on failure:
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
@@ -44,7 +44,19 @@ each raising on failure:
    the CPU port (which the CPU tests hold to the JAX reference) against
    the cuda run, a small config on cuda against the CPU port, and
    ``symed_encode(reconstruct=True)`` on 4 paper-config streams, cuda
-   against the CPU port.
+   against the CPU port (run last: the CPU port's side runs in a worker
+   process beside the card's phases);
+7. compressed-in, the paper's own deployment: (a) the same 256 sessions as
+   senders that compress on the card (one batched ``symed_encode_chunk``
+   per 64-point window, ``pieces_on_wire`` per session) and a
+   ``StreamServer`` that only digitizes (``ingest_pieces_many`` per
+   window, then the tails, then close), through the Lloyd kernel; each
+   session held against phase 6's raw-in run (pieces, endpoints and
+   ``n_pieces`` bitwise, at least 99% of symbols equal); (b) over loopback
+   TCP: a ``TransportServer`` on the card (16 slots, autoscaled from 4)
+   in a thread, and one ``SenderClient`` compressing on the card that
+   interleaves 8 sessions (4 pieces, 4 raw) on one socket, each held
+   against ``symed_encode`` on the card.
 
 The last two lines are a JSON summary of every kernel and
 ``{"ok": true, "device": {...}}``.
@@ -75,6 +87,9 @@ SESSIONS, POINTS, WINDOW = 256, 2048, 64
 DTW_EVERY = 8  # the monitor fires at 512, 1024, 1536 and 2048 points
 PLAIN_STRIDE = 16  # the plain k-means run serves every 16th session
 CHECK_ROWS = range(0, SESSIONS, SESSIONS // 8)   # held against the CPU port
+# phase 7 (b): the transport's table, and the modes of its CHECK_ROWS
+# sessions (the first four compress on the card, the others send raw)
+TCP_SLOTS, TCP_MIN_SLOTS, TCP_PIECES = 16, 4, 4
 ENCODE_ROWS = range(1, SESSIONS, SESSIONS // 4)  # symed_encode, cuda vs CPU
 # (B, N, band): tests/test_kernels.py's DTW cases, a pair whose buffers
 # overflow shared memory, band 64 and the monitor's shapes: all sessions at
@@ -588,8 +603,6 @@ def _serve(torch, cfg, data, *, device, use_kernel, window, clock=None,
     session gets the same key whichever rows are served.  For each row index
     in ``check_rows``, the final DTW reading is recomputed from the slot
     table with the plain DTW before the close."""
-    import numpy as np
-
     from repro_torch.core import prng
     from repro_torch.launch.stream import StreamServer
 
@@ -619,22 +632,28 @@ def _serve(torch, cfg, data, *, device, use_kernel, window, clock=None,
     if device != "cpu":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    stats = {"wall": wall, "ingest": t_ingest, "rounds": rounds,
+             "points": int(server.totals["points_in"]),
+             "dtw_seconds": server.totals["dtw_seconds"],
+             "dtw_readings": server.totals["dtw_readings"]}
+    return _session_outputs(labels, ends, closed), stats
+
+
+def _session_outputs(labels, ends, closed):
+    """Each session's joined delta frames (every round's and the closing
+    one) and its close summary."""
+    import numpy as np
 
     out = {}
-    for sid in sids:
-        res = closed[sid]
+    for sid, res in closed.items():
         out[sid] = {
             "labels": np.concatenate(labels[sid] + [res["delta"]["labels"]]),
             "endpoints": np.concatenate(ends[sid]
                                         + [res["delta"]["endpoints"]]),
             "n_pieces": res["n_pieces"], "t_seen": res["t_seen"],
-            "k": int(res["out"]["k"]),
-            "dtw": res["dtw"],
+            "k": int(res["out"]["k"]), "dtw": res["dtw"],
         }
-    return out, {"wall": wall, "ingest": t_ingest, "rounds": rounds,
-                 "points": int(server.totals["points_in"]),
-                 "dtw_seconds": server.totals["dtw_seconds"],
-                 "dtw_readings": server.totals["dtw_readings"]}
+    return out
 
 
 def _check_reading(torch, server, sid, raw):
@@ -796,9 +815,9 @@ def _encode_against_cpu(torch, dev, cfg, data, on_cpu):
               f"call {t_gpu:.2f} s", flush=True)
 
 
-def end_to_end_phase(torch, dev, cpu_results):
-    """``cpu_results`` is the pipe end on which ``_cpu_worker`` sends the CPU
-    port's side of the cross-device checks."""
+def end_to_end_phase(torch, dev):
+    """Phase 6's service runs on the card; returns the Lloyd and DTW
+    kernels' launches and the kernel run's sessions."""
     import numpy as np
 
     from repro_torch.core import digitize
@@ -889,10 +908,19 @@ def end_to_end_phase(torch, dev, cpu_results):
           f"{agree}/{total} agree ({100 * share:.3f}%), sessions differing: "
           f"{diff[:8]}{' ...' if len(diff) > 8 else ''}", flush=True)
 
-    # the card against the CPU port: 8 of the sessions above, spread over
-    # the fleet's families, at the paper's widths (the cuda results are the
-    # run above); a config small enough that k reaches k_max; symed_encode
-    phase("end to end: cuda against the CPU port")
+    return launches, krn
+
+
+def cross_device_phase(torch, dev, krn, cpu_results):
+    """The card against the CPU port: 8 of phase 6's sessions, spread over
+    the fleet's families, at the paper's widths (``krn``, the kernel run);
+    a config small enough that k reaches k_max; ``symed_encode``.
+    ``cpu_results`` is the pipe end on which ``_cpu_worker`` sends the CPU
+    port's side."""
+    from repro_torch.data.synthetic import make_fleet
+
+    cfg = _paper_cfg()
+    data = make_fleet(SESSIONS, POINTS, seed=0)
     small_cfg, small_data = _small_case()
     small, _ = _serve(torch, small_cfg, small_data, device=dev,
                       use_kernel=True, window=32)
@@ -906,7 +934,203 @@ def end_to_end_phase(torch, dev, cpu_results):
                  dtw_every=DTW_EVERY)
     _against_cpu(small, cpu["small"], "small config")
     _encode_against_cpu(torch, dev, cfg, data, cpu["encode"])
-    return launches
+
+
+def _sender_half(torch, cfg, data, dev, window):
+    """Phase 7 (a)'s senders: one batched ``symed_encode_chunk`` per window
+    over every row on the card (the batched EWMV rounding, as the raw-in
+    table's sender), then ``pieces_on_wire`` per row.  Returns the
+    arrivals of each window and of the tails, ``{sid: arrival}`` each."""
+    from repro_torch.core.compress import compressor_finalize, pieces_on_wire
+    from repro_torch.core.symed import symed_encode_chunk
+
+    length = data.shape[1]
+    rounds, state = [], None
+    for w in range(0, length, window):
+        state, ev = symed_encode_chunk(torch.from_numpy(data[:, w: w + window]),
+                                       cfg, state, device=dev)
+        host = {k: ev[k].cpu().numpy() for k in ("emit", "endpoint")}
+        arrivals = {}
+        for r in range(data.shape[0]):
+            eps, steps = pieces_on_wire({k: v[r] for k, v in host.items()}, w)
+            arrivals[f"s{r}"] = {"endpoints": eps, "steps": steps,
+                                 "t_seen": min(w + window, length),
+                                 "t0": float(data[r, 0])}
+        rounds.append(arrivals)
+    tail = compressor_finalize(state)
+    emit, ends = tail.emit.cpu().numpy(), tail.endpoint.cpu().numpy()
+    tails = {f"s{r}": {"endpoints": ends[r: r + 1], "steps": [length],
+                       "t_seen": length, "t0": float(data[r, 0])}
+             for r in range(data.shape[0]) if emit[r]}
+    return rounds, tails
+
+
+def _receiver_half(torch, cfg, rounds, tails, dev, window, clock):
+    """Phase 7 (a)'s edge: a ``StreamServer`` with the kernel on that only
+    digitizes.  Session ``s{r}`` has phase 6's key for row ``r``."""
+    from repro_torch.core import prng
+    from repro_torch.launch.stream import StreamServer
+
+    sids = list(rounds[0])
+    server = StreamServer(cfg, max_sessions=len(sids), window_cap=window,
+                          digitize_every_k=1, use_kernel=True, device=dev,
+                          clock=clock)
+    base = prng.key(0)
+    for r, sid in enumerate(sids):
+        server.open(sid, key=prng.fold_in(base, r + 1))
+    labels = {sid: [] for sid in sids}
+    ends = {sid: [] for sid in sids}
+    t0 = time.perf_counter()
+    for arrivals in [*rounds, tails]:
+        for sid, d in server.ingest_pieces_many(arrivals).items():
+            labels[sid].append(d["labels"])
+            ends[sid].append(d["endpoints"])
+    t_ingest = time.perf_counter() - t0
+    rounds_run = server.totals["steps"]
+    closed = {sid: server.close(sid) for sid in sids}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = {"wall": wall, "ingest": t_ingest, "rounds": rounds_run,
+             "points": int(server.totals["points_in"]),
+             "bytes_in": server.totals["bytes_in"]}
+    return _session_outputs(labels, ends, closed), stats
+
+
+def _tcp_run(torch, cfg, data, dev):
+    """Phase 7 (b): a ``TransportServer`` on the card in a thread and one
+    ``SenderClient`` (compressing on the card) interleaving the
+    ``CHECK_ROWS`` sessions on one socket.  Returns each session's result
+    and delta stream, the transport's summary and the wall time."""
+    import threading
+
+    from repro_torch.launch.stream import StreamServer
+    from repro_torch.launch.transport import (
+        SenderClient, TransportServer, session_seed)
+
+    server = StreamServer(cfg, max_sessions=TCP_SLOTS, window_cap=WINDOW,
+                          digitize_every_k=1, autoscale=True,
+                          min_slots=TCP_MIN_SLOTS, device=dev)
+    transport = TransportServer(server, port=0)
+    rows = {f"tcp-{r}": r for r in CHECK_ROWS}
+    modes = {sid: "pieces" if i < TCP_PIECES else "raw"
+             for i, sid in enumerate(rows)}
+    failure = []
+
+    def serve():
+        try:
+            transport.serve(expect_sessions=len(rows))
+        except BaseException:
+            failure.append(traceback.format_exc())
+            transport.shutdown()
+            raise
+
+    thread = threading.Thread(target=serve, daemon=True)
+    t0 = time.perf_counter()
+    thread.start()
+    client = SenderClient("127.0.0.1", transport.port, cfg)
+    if client.device.type != torch.device(dev).type:
+        raise AssertionError(f"the sender compresses on {client.device}")
+    try:
+        for sid, r in rows.items():
+            client.open(sid, session_seed(sid, 0), mode=modes[sid])
+        for w in range(0, POINTS, WINDOW):
+            for sid, r in rows.items():
+                client.send(sid, data[r, w: w + WINDOW])
+        results = {sid: client.close(sid) for sid in rows}
+        deltas = {sid: client.delta_concat(sid) for sid in rows}
+    finally:
+        client.shutdown()
+        thread.join(timeout=120)
+    if failure or thread.is_alive():
+        raise AssertionError("the transport server failed:\n"
+                             + "".join(failure or ["it did not exit"]))
+    torch.cuda.synchronize()
+    return (rows, results, deltas, transport.summary(),
+            server.report(1.0), time.perf_counter() - t0)
+
+
+def compressed_in_phase(torch, dev, krn, krn_launches):
+    """Phase 7: (a) the compressed-in service against phase 6's raw-in
+    kernel run ``krn``; (b) the same path over loopback TCP against
+    ``symed_encode`` on the card."""
+    from repro_torch.core import digitize
+    from repro_torch.data.synthetic import make_fleet
+    from repro_torch.kernels.dtw import dtw_cuda
+    from repro_torch.kernels.ewma import ewma_scan_cuda
+    from repro_torch.kernels.kmeans import kmeans_assign_cuda, kmeans_lloyd_cuda
+    from repro_torch.launch.stream import PhaseClock
+    from repro_torch.launch.transport import check_deltas, session_seed
+
+    cfg = _paper_cfg()
+    data = make_fleet(SESSIONS, POINTS, seed=0)
+
+    # (a) in process
+    t0 = time.perf_counter()
+    rounds, tails = _sender_half(torch, cfg, data, dev, WINDOW)
+    torch.cuda.synchronize()
+    t_sender = time.perf_counter() - t0
+    clock = PhaseClock(torch.device(dev))
+    for fn in (kmeans_assign_cuda, kmeans_lloyd_cuda, dtw_cuda,
+               ewma_scan_cuda):
+        fn.launches = 0
+    digitize.host_syncs = 0
+    pcs, t_pcs = _receiver_half(torch, cfg, rounds, tails, dev, WINDOW, clock)
+    lloyd, syncs = kmeans_lloyd_cuda.launches, digitize.host_syncs
+    others = {"half-step": kmeans_assign_cuda.launches,
+              "DTW": dtw_cuda.launches, "EWMA": ewma_scan_cuda.launches}
+    if lloyd <= 0:
+        raise AssertionError("the compressed-in service never launched the "
+                             "Lloyd kernel")
+    for name, n in others.items():
+        if n:
+            raise AssertionError(f"the compressed-in service launched the "
+                                 f"{name} kernel {n} times")
+    agree, total = _compare(pcs, krn, "compressed-in vs raw-in")
+    if agree < 0.99 * total:
+        raise AssertionError(f"compressed-in vs raw-in: symbols "
+                             f"{agree}/{total}")
+    rounds_run = t_pcs["rounds"]
+    raw_bytes = 4.0 * t_pcs["points"]
+    print(f"compressed-in (a): {SESSIONS} sessions x {POINTS} points, "
+          f"{rounds_run} rounds ({len(rounds)} windows + the tails of "
+          f"{len(tails)} sessions); pieces, endpoints and n_pieces bitwise "
+          f"equal to phase 6's raw-in run, symbols {agree}/{total} agree "
+          f"({100 * agree / max(total, 1):.3f}%)", flush=True)
+    print(f"compressed-in (a): Lloyd kernel launches {lloyd} (raw-in, phase "
+          f"6: {krn_launches}), half-step, DTW and EWMA kernel launches 0; "
+          f"host syncs {syncs} ({syncs / max(rounds_run, 1):.1f} per round "
+          f"+ 1 harvest copy)", flush=True)
+    print(f"compressed-in (a): {t_pcs['points'] / t_pcs['wall']:.1f} "
+          f"raw-equivalent points/s over {t_pcs['wall']:.2f} s (receiver, "
+          f"close included), {1e3 * t_pcs['ingest'] / rounds_run:.2f} ms per "
+          f"round "
+          + ", ".join(f"{k} {v / rounds_run:.2f} ms"
+                      for k, v in clock.totals.items())
+          + f"; the sender half apart: {t_sender:.2f} s "
+          f"({1e3 * t_sender / len(rounds):.2f} ms per window of {SESSIONS} "
+          f"senders); bytes in {t_pcs['bytes_in']:.0f} for "
+          f"{raw_bytes:.0f} raw bytes ({t_pcs['bytes_in'] / raw_bytes:.4f} "
+          f"of 4 B per point)", flush=True)
+
+    # (b) over loopback TCP
+    rows, results, deltas, summ, rep, wall = _tcp_run(
+        torch, cfg, data, dev)
+    agree = total = 0
+    for sid, r in rows.items():
+        res = results[sid]
+        if res["t_seen"] != POINTS:
+            raise AssertionError(f"tcp {sid}: t_seen {res['t_seen']}")
+        agree += check_deltas(f"tcp {sid}", *deltas[sid], res,
+                              torch.from_numpy(data[r]).to(dev), cfg,
+                              session_seed(sid, 0), 0.99)
+        total += res["n_pieces"]
+    print(f"compressed-in (b), loopback TCP: {len(rows)} sessions "
+          f"({TCP_PIECES} pieces, {len(rows) - TCP_PIECES} raw) x {POINTS} "
+          f"points on one socket, table {TCP_MIN_SLOTS}..{TCP_SLOTS} slots "
+          f"(capacity {int(rep['capacity'])}, {int(rep['grows'])} grows); "
+          f"n_pieces and endpoints bitwise equal to symed_encode on the "
+          f"card, symbols {agree}/{total} agree; pieces_ratio "
+          f"{summ['pieces_ratio']:.4f}; wall {wall:.2f} s", flush=True)
 
 
 def main() -> int:
@@ -973,7 +1197,13 @@ def _card_phases(torch, dev, smi, cpu_results) -> int:
     measured["ewma"] = ewma_phase(torch, dev)
 
     phase("end to end")
-    launches = end_to_end_phase(torch, dev, cpu_results)
+    launches, krn = end_to_end_phase(torch, dev)
+
+    phase("compressed-in")
+    compressed_in_phase(torch, dev, krn, launches["kmeans_lloyd"])
+
+    phase("end to end: cuda against the CPU port")
+    cross_device_phase(torch, dev, krn, cpu_results)
     # the half-step's and the ewma kernel's launches are their own entry
     # points' (phases 3 and 5): the service launches neither
     for name in ("kmeans_assign", "ewma"):

@@ -184,7 +184,8 @@ def compressor_scan(
     single: Optional[bool] = None,
 ) -> Tuple[CompressorState, PieceEvent]:
     """Run the sender over the window ``ts (..., C)`` (batched on leading
-    axes); returns the carry and the window's events, time on the last axis.
+    axes; ``C`` may be 0 when ``state`` is given); returns the carry and
+    the window's events, time on the last axis.
 
     ``state=None`` opens the stream at ``ts[..., 0]`` (a no-emit event for
     it, so events align 1:1 with stream steps).  ``single`` picks the EWMV
@@ -206,6 +207,9 @@ def compressor_scan(
         state, ev = compressor_step(state, t, tol=tol, len_max=len_max,
                                     alpha=alpha, single=single)
         events.append(ev)
+    if not events:  # an empty window: no step, no event
+        z = ts_t.movedim(0, -1)
+        return state, PieceEvent(z.to(torch.bool), z, z.to(torch.int32), z)
     return state, PieceEvent(*(torch.stack(xs, dim=-1)
                                for xs in zip(*events)))
 

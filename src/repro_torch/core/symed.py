@@ -9,16 +9,22 @@ Port of ``repro.core.symed``:
   * ``symed_encode_chunk`` / ``symed_finish`` -- the same stream fed to the
     sender window by window, then closed;
   * ``symed_batch`` -- a slab of streams, one key per stream;
+  * ``symed_receive_chunk`` / ``symed_step_chunk`` -- the online receiver
+    of one stream: sender, wire and (every ``digitize_every_k`` windows)
+    the digitizer, window by window;
   * ``symed_receive_masked_chunk_table`` -- the session table ingests one
     padded, ragged window per slot: per-slot sender scan and wire
     compaction, then one table-level digitize pass whose Lloyd loops can
     run in the CUDA k-means kernel (``use_kernel=True``);
+  * ``symed_receive_masked_pieces_table`` -- its compressed-in counterpart:
+    the senders ran the compressor and ship piece tuples, which are
+    scattered into the wire buffers before the same digitize pass;
   * ``symed_receive_finish`` -- close a stream: flush the tail, digitize the
     rest, emit the closing symbol-delta frame, optionally reconstruct.
 
 A ``ReceiverState`` carries every leaf with a leading slot axis when it is
-a table; ``symed_receive_masked_chunk`` / ``symed_receive_finish`` also take
-one slot's state (no leading axis).
+a table; ``symed_receive_masked_chunk`` / ``symed_receive_masked_pieces`` /
+``symed_receive_finish`` also take one slot's state (no leading axis).
 """
 from __future__ import annotations
 
@@ -56,9 +62,13 @@ __all__ = [
     "symed_encode",
     "symed_encode_chunk",
     "symed_finish",
+    "symed_receive_chunk",
     "symed_receive_finish",
     "symed_receive_masked_chunk",
     "symed_receive_masked_chunk_table",
+    "symed_receive_masked_pieces",
+    "symed_receive_masked_pieces_table",
+    "symed_step_chunk",
     "symbols_to_string",
 ]
 
@@ -186,6 +196,46 @@ def _symbol_delta_info(n_dig_prev, dig, symbols_online, endpoints, emitted):
     }
 
 
+def _digitize_and_report(table: ReceiverState, live, comp, t0, t_seen,
+                         endpoints, steps, n_pieces, chunks, *,
+                         cfg: SymEDConfig, digitize_every_k: int,
+                         use_kernel: bool, mark):
+    """The receiver half of a table step, after the sender or the scatter
+    filled the wire buffers: digitize the lanes that are ``live`` and on
+    cadence, then assemble the new table and the step's info."""
+    n_dig_prev = table.dig.n
+    if digitize_every_k:
+        emitted = live & (chunks % int(digitize_every_k) == 0)
+        dig, symbols_online = _digitize_new_pieces_table(
+            table.dig, table.symbols_online, endpoints, steps, n_pieces, t0,
+            emitted, cfg=cfg, use_kernel=use_kernel)
+    else:
+        emitted = torch.zeros_like(live)
+        dig, symbols_online = table.dig, table.symbols_online
+    if mark is not None:
+        mark("digitize")
+
+    new_table = ReceiverState(
+        comp=comp, dig=dig, endpoints=endpoints, steps=steps,
+        n_pieces=n_pieces, symbols_online=symbols_online,
+        t0=t0, t_seen=t_seen, chunks=chunks,
+    )
+    info = {
+        "n_pieces": n_pieces,
+        "n_digitized": dig.n,
+        "t_seen": t_seen,
+        "symbols_online": symbols_online,
+        "symbol_delta": _symbol_delta_info(
+            n_dig_prev, dig, symbols_online, endpoints, emitted),
+    }
+    return new_table, info
+
+
+def _check_cadence(digitize_every_k: int) -> None:
+    if digitize_every_k < 0:
+        raise ValueError(f"digitize_every_k must be >= 0, got {digitize_every_k}")
+
+
 def symed_receive_masked_chunk_table(
     windows: torch.Tensor,
     n_valid: torch.Tensor,
@@ -205,8 +255,7 @@ def symed_receive_masked_chunk_table(
     after the sender half (``"sender"``) and after the digitize pass
     (``"digitize"``).  Returns ``(table, info)``.
     """
-    if digitize_every_k < 0:
-        raise ValueError(f"digitize_every_k must be >= 0, got {digitize_every_k}")
+    _check_cadence(digitize_every_k)
     n_valid = torch.as_tensor(n_valid, dtype=torch.int32,
                               device=windows.device)
     comp, t0, t_seen, endpoints, steps, n_pieces, chunks = _masked_sender_wire(
@@ -214,33 +263,58 @@ def symed_receive_masked_chunk_table(
         alpha=cfg.alpha, len_max=cfg.len_max)
     if mark is not None:
         mark("sender")
+    return _digitize_and_report(
+        table, n_valid > 0, comp, t0, t_seen, endpoints, steps, n_pieces,
+        chunks, cfg=cfg, digitize_every_k=digitize_every_k,
+        use_kernel=use_kernel, mark=mark)
 
-    n_dig_prev = table.dig.n
-    if digitize_every_k:
-        emitted = (n_valid > 0) & (chunks % int(digitize_every_k) == 0)
-        dig, symbols_online = _digitize_new_pieces_table(
-            table.dig, table.symbols_online, endpoints, steps, n_pieces, t0,
-            emitted, cfg=cfg, use_kernel=use_kernel)
-    else:
-        emitted = torch.zeros_like(n_valid, dtype=torch.bool)
-        dig, symbols_online = table.dig, table.symbols_online
+
+def symed_receive_masked_pieces_table(
+    piece_endpoints: torch.Tensor,
+    piece_steps: torch.Tensor,
+    n_valid: torch.Tensor,
+    hello: torch.Tensor,
+    t_seen: torch.Tensor,
+    cfg: SymEDConfig,
+    table: ReceiverState,
+    *,
+    digitize_every_k: int = 1,
+    use_kernel: bool = False,
+    mark: Optional[Callable[[str], None]] = None,
+) -> Tuple[ReceiverState, Dict[str, Any]]:
+    """Compressed-in counterpart of ``symed_receive_masked_chunk_table``.
+
+    The senders ran the compressor and ship finished pieces: the first
+    ``n_valid`` of each slot's padded tuples ``(piece_endpoints (S, P),
+    piece_steps (S, P))`` are scattered into its wire buffers, where a
+    raw-in ingest of the same stream would have put them, and the table is
+    digitized as in the raw-in step.  ``hello (S,)`` is the sender's t0,
+    taken only while a slot's ``t_seen == 0``; ``t_seen (S,)`` the sender's
+    point clock after this frame (a frame that finished no piece still
+    advances it).  The slot compressors never run.  ``mark(phase)`` is
+    called after the scatter (``"wire"``) and after the digitize pass
+    (``"digitize"``).  Returns ``(table, info)``.
+    """
+    _check_cadence(digitize_every_k)
+    dev = table.t_seen.device
+    n_valid = torch.as_tensor(n_valid, dtype=torch.int32, device=dev)
+    hello = torch.as_tensor(hello, dtype=torch.float32, device=dev)
+    t_seen = torch.as_tensor(t_seen, dtype=torch.int32, device=dev)
+    t0 = torch.where(table.t_seen == 0, hello, table.t0)
+    p_cap = piece_endpoints.shape[1]
+    valid = (torch.arange(p_cap, device=dev)[None, :] < n_valid[:, None])
+    endpoints, steps, n_pieces = compact_chunk(
+        table.endpoints, table.steps, table.n_pieces, valid,
+        torch.as_tensor(piece_endpoints, dtype=torch.float32, device=dev),
+        torch.as_tensor(piece_steps, dtype=torch.int32, device=dev))
+    t_seen = torch.maximum(table.t_seen, t_seen)
+    chunks = table.chunks + (n_valid > 0).to(torch.int32)
     if mark is not None:
-        mark("digitize")
-
-    new_table = ReceiverState(
-        comp=comp, dig=dig, endpoints=endpoints, steps=steps,
-        n_pieces=n_pieces, symbols_online=symbols_online,
-        t0=t0, t_seen=t_seen, chunks=chunks,
-    )
-    info = {
-        "n_pieces": n_pieces,
-        "n_digitized": dig.n,
-        "t_seen": t_seen,
-        "symbols_online": symbols_online,
-        "symbol_delta": _symbol_delta_info(
-            n_dig_prev, dig, symbols_online, endpoints, emitted),
-    }
-    return new_table, info
+        mark("wire")
+    return _digitize_and_report(
+        table, n_valid > 0, table.comp, t0, t_seen, endpoints, steps,
+        n_pieces, chunks, cfg=cfg, digitize_every_k=digitize_every_k,
+        use_kernel=use_kernel, mark=mark)
 
 
 def _batch1(state):
@@ -264,6 +338,87 @@ def symed_receive_masked_chunk(ts_chunk, n_valid, cfg: SymEDConfig,
         torch.as_tensor(ts_chunk)[None], torch.as_tensor(n_valid).reshape(1),
         cfg, _batch1(state), digitize_every_k=digitize_every_k)
     return _unbatch1(table), _unbatch1(info)
+
+
+def symed_receive_masked_pieces(piece_endpoints, piece_steps, n_valid, hello,
+                                t_seen, cfg: SymEDConfig,
+                                state: ReceiverState, *,
+                                digitize_every_k: int = 1):
+    """One slot scatters the first ``n_valid`` of the piece tuples
+    ``(piece_endpoints (P,), piece_steps (P,))``; ``hello`` and ``t_seen``
+    are scalars (see ``symed_receive_masked_pieces_table``).  The sender's
+    trailing flush arrives as an ordinary tuple with ``step = t_seen``, so
+    the blank slot compressor has nothing to flush at
+    ``symed_receive_finish``."""
+    dev = state.t_seen.device
+    one = lambda v, dt: torch.as_tensor(v, dtype=dt, device=dev).reshape(1)
+    table, info = symed_receive_masked_pieces_table(
+        torch.as_tensor(piece_endpoints)[None],
+        torch.as_tensor(piece_steps)[None], one(n_valid, torch.int32),
+        one(hello, torch.float32), one(t_seen, torch.int32), cfg,
+        _batch1(state), digitize_every_k=digitize_every_k)
+    return _unbatch1(table), _unbatch1(info)
+
+
+def symed_receive_chunk(ts_chunk, cfg: SymEDConfig,
+                        state: Optional[ReceiverState] = None, key=None, *,
+                        digitize_every_k: int = 1, device=None):
+    """The online receiver of one stream: ingest one ``(C,)`` window.
+
+    ``state=None`` opens the stream at the window's first point and needs
+    ``key`` (two uint32 key words) to seed the digitizer.  Every call runs
+    the sender over the window and compacts its pieces into the wire
+    buffers; every ``digitize_every_k``-th call also digitizes the pieces
+    that arrived since the last digitize (the plain k-means, as in the
+    reference), so symbols stream out while the stream arrives.
+    ``digitize_every_k=0`` defers them to ``symed_receive_finish``.
+
+    Returns ``(state, info)``: ``info["n_pieces"]`` pieces so far, of which
+    ``info["n_digitized"]`` have symbols in ``info["symbols_online"]``, and
+    ``info["symbol_delta"]`` the window's wire-out frame.  ``device``: where
+    it runs, ``cuda`` unless ``"cpu"`` is passed; the window, the state and
+    the key move there.
+    """
+    if state is None and key is None:
+        raise ValueError("opening a stream (state=None) requires a PRNG key")
+    _check_cadence(digitize_every_k)
+    dev = resolve_device(device)
+    chunk = torch.as_tensor(ts_chunk, dtype=torch.float32,
+                            device=dev).reshape(-1)
+    if state is None:
+        blank = receiver_init(cfg, prng.as_key(key, dev))
+        one = torch.ones_like(blank.t_seen)
+        state = blank._replace(comp=compressor_init(chunk[0]), t0=chunk[0],
+                               t_seen=one)
+        chunk = chunk[1:]
+    else:
+        state = _to_device(state, dev)
+    # the rank-1 sender: the reference's single-stream rounding
+    comp, ev = compressor_scan(chunk, state.comp, tol=cfg.tol,
+                               len_max=cfg.len_max, alpha=cfg.alpha,
+                               single=True)
+    step_idx = state.t_seen + torch.arange(chunk.shape[0], dtype=torch.int32,
+                                           device=dev)
+    endpoints, steps, n_pieces = compact_chunk(
+        state.endpoints, state.steps, state.n_pieces, ev.emit, ev.endpoint,
+        step_idx)
+    t_seen = state.t_seen + chunk.shape[0]
+    table, info = _digitize_and_report(
+        _batch1(state), torch.ones((1,), dtype=torch.bool, device=dev),
+        _batch1(comp), state.t0[None], t_seen[None], endpoints[None],
+        steps[None], n_pieces[None], (state.chunks + 1)[None], cfg=cfg,
+        digitize_every_k=digitize_every_k, use_kernel=False, mark=None)
+    del info["t_seen"]  # the reference's per-stream info has no clock
+    return _unbatch1(table), _unbatch1(info)
+
+
+def symed_step_chunk(ts_chunk, cfg: SymEDConfig,
+                     state: Optional[ReceiverState] = None, key=None, *,
+                     device=None):
+    """Sender and wire only: ``symed_receive_chunk(digitize_every_k=0)``;
+    the digitizer catches up in ``symed_receive_finish``."""
+    return symed_receive_chunk(ts_chunk, cfg, state, key, digitize_every_k=0,
+                               device=device)
 
 
 def _score(out, ts, lens, incs, n_pieces, t0) -> None:
@@ -378,14 +533,19 @@ def symed_encode(ts, cfg: SymEDConfig, key, reconstruct: bool = True,
 
 
 def symed_encode_chunk(ts_chunk, cfg: SymEDConfig,
-                       state: Optional[CompressorState] = None):
+                       state: Optional[CompressorState] = None, device=None):
     """Resumable sender: ingest one ``(..., C)`` window of the stream.
 
     ``state=None`` opens the stream at the window's first point.  Returns
     ``(state, events)``: per-step ``emit``/``endpoint``/``length``/``inc``
     shaped like the window.  Step for step the same as ``compress_stream``
-    over the joined windows.
+    over the joined windows.  ``device`` as for ``symed_encode``; the window
+    and the state move there.
     """
+    dev = resolve_device(device)
+    ts_chunk = torch.as_tensor(ts_chunk, dtype=torch.float32, device=dev)
+    if state is not None:
+        state = _to_device(state, dev)
     state, ev = compressor_scan(ts_chunk, state, tol=cfg.tol,
                                 len_max=cfg.len_max, alpha=cfg.alpha)
     return state, {"emit": ev.emit, "endpoint": ev.endpoint,

@@ -1,12 +1,12 @@
 """Shared argparse surface for the port's launch CLIs.
 
 Port of ``repro.launch.cli``: the same flags, defaults and checks, and the
-same error messages letter for letter, so that the port's CLIs accept and
-reject what the reference's accept and reject.  Only the groups and checks
-of flags that a port CLI mounts are here: ``--min-slots`` and
-``--pretrace`` wait for the autoscale floor and a per-capacity CUDA graph,
-``--devices``, ``--streams`` and the metrics flags for the parts of the
-reference that use them.
+same error messages letter for letter, so that the port's CLIs (stream
+and transport) accept and reject what the reference's accept and reject.
+Only the groups and checks of flags that a port CLI mounts are here:
+``--pretrace`` waits for a per-capacity CUDA graph, ``--devices`` and the
+metrics flags for the parts of the reference that use them (the sharded
+table and the flight recorder).
 """
 from __future__ import annotations
 
@@ -27,13 +27,16 @@ def add_symed_args(ap: argparse.ArgumentParser) -> None:
                          "digitizer keys")
 
 
-def add_slot_table_args(ap: argparse.ArgumentParser) -> None:
-    """The resident ``StreamServer`` table shape."""
-    ap.add_argument("--max-slots", type=int, default=4,
+def add_slot_table_args(ap: argparse.ArgumentParser, *,
+                        max_slots: int = 4) -> None:
+    """The resident ``StreamServer`` table shape (stream + transport serve)."""
+    ap.add_argument("--max-slots", type=int, default=max_slots,
                     help="resident slot-table capacity")
+    ap.add_argument("--min-slots", type=int, default=1,
+                    help="autoscale floor")
     ap.add_argument("--autoscale", action="store_true",
                     help="grow/shrink the slot table between steps "
-                         "(power-of-two ladder from 1 slot)")
+                         "(power-of-two ladder from --min-slots)")
     ap.add_argument("--evict", action="store_true",
                     help="LRU-evict when sessions exceed slots")
     ap.add_argument("--digitize-every", type=int, default=1,
@@ -52,6 +55,8 @@ def validate_shared_args(ap: argparse.ArgumentParser, args) -> None:
     def has(name):
         return getattr(args, name, None) is not None
 
+    if has("streams") and args.streams < 1:
+        ap.error(f"--streams must be >= 1, got {args.streams}")
     if has("sessions") and args.sessions < 1:
         ap.error(f"--sessions must be >= 1, got {args.sessions}")
     if has("length") and args.length < 2:
@@ -69,5 +74,9 @@ def validate_shared_args(ap: argparse.ArgumentParser, args) -> None:
         ap.error(f"--alpha must be in (0, 1], got {args.alpha}")
     if has("max_slots") and args.max_slots < 1:
         ap.error(f"--max-slots must be >= 1, got {args.max_slots}")
+    if (has("min_slots") and has("max_slots")
+            and not 1 <= args.min_slots <= args.max_slots):
+        ap.error(f"--min-slots {args.min_slots} must be in "
+                 f"[1, --max-slots {args.max_slots}]")
     if has("shrink_patience") and args.shrink_patience < 1:
         ap.error(f"--shrink-patience must be >= 1, got {args.shrink_patience}")

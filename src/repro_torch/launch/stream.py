@@ -8,6 +8,12 @@ drives every arrival round through one table step
 the same step, idle slots ride along as masked no-ops.  On CUDA the
 digitize pass's Lloyd loops run in the hand-written k-means kernel.
 
+Compressed-in sessions (``ingest_pieces_many``): the senders ran the
+compressor and ship piece tuples, which one table step
+(``symed_receive_masked_pieces_table``) scatters into the wire buffers
+before the same digitize pass.  Raw-in and compressed-in sessions share one
+table; each session stays in one mode.
+
 Wire out: every digitize pass emits a symbol-delta frame ``(new_labels,
 new_piece_endpoints, n_new)``; joining every delta of a session plus its
 closing frame reproduces ``symed_encode``'s ``symbols_online`` and wire
@@ -42,12 +48,13 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import prng
 from repro_torch.core.receiver import (
-    DELTA_FRAME_HEADER_BYTES, DELTA_SYMBOL_BYTES, pieces_from_wire,
+    DELTA_FRAME_HEADER_BYTES, DELTA_SYMBOL_BYTES, PIECE_TUPLE_BYTES,
+    pieces_from_wire,
 )
 from repro_torch.core.reconstruct import reconstruct_from_pieces
 from repro_torch.core.symed import (
     SymEDConfig, receiver_init, symbols_to_string, symed_receive_finish,
-    symed_receive_masked_chunk_table,
+    symed_receive_masked_chunk_table, symed_receive_masked_pieces_table,
 )
 from repro_torch.kernels import ops
 
@@ -140,7 +147,7 @@ class StreamServer:
     feeds a ragged arrival and returns the symbol-delta frame it produced,
     ``close(stream_id)`` flushes the stream and frees the slot;
     ``ingest_many`` advances concurrent arrivals in one table step per
-    round.
+    round, ``ingest_pieces_many`` the arrivals of compressed-in sessions.
 
     Args:
       cfg: SymED hyperparameters (shared by every session).
@@ -155,18 +162,20 @@ class StreamServer:
       dtw_band: Sakoe-Chiba radius for the monitor (None = full DTW).
       evict_idle: when the table is full and cannot grow, ``open`` evicts
         the least-recently active session instead of raising.
-      autoscale: walk the capacity along a power-of-two ladder from 1 to
-        ``max_sessions``: ``open`` on a full table doubles it, ``close``
-        shrinks it once occupancy has stayed at or below a quarter of the
-        capacity for ``shrink_patience`` consecutive closes.
+      autoscale: walk the capacity along a power-of-two ladder from
+        ``min_slots`` to ``max_sessions``: ``open`` on a full table doubles
+        it, ``close`` shrinks it once occupancy has stayed at or below a
+        quarter of the capacity for ``shrink_patience`` consecutive closes.
         Resizes are pure gathers and concatenations of the table's tensors.
+      min_slots: the autoscale floor, the ladder's first rung.
       use_kernel: run the Lloyd loops in the CUDA k-means kernel
         (default: on when the table lives on CUDA).
       seed: base PRNG seed for per-session digitizer keys.
       device: where the table lives; ``cuda`` unless ``"cpu"`` is passed.
         Without CUDA, only ``device="cpu"`` works.
-      clock: a ``PhaseClock`` that times the sender, digitize and harvest
-        phases of every round (optional).
+      clock: a ``PhaseClock`` that times the phases of every round
+        (optional): sender (raw in) or wire (compressed in), digitize,
+        harvest.
     """
 
     def __init__(
@@ -180,6 +189,7 @@ class StreamServer:
         dtw_band: Optional[int] = None,
         evict_idle: bool = False,
         autoscale: bool = False,
+        min_slots: int = 1,
         shrink_patience: int = 3,
         use_kernel: Optional[bool] = None,
         seed: int = 0,
@@ -193,6 +203,9 @@ class StreamServer:
         if digitize_every_k < 0:
             raise ValueError(
                 f"digitize_every_k must be >= 0, got {digitize_every_k}")
+        if not 1 <= min_slots <= max_sessions:
+            raise ValueError(
+                f"min_slots={min_slots} must be in [1, {max_sessions}]")
         if shrink_patience < 1:
             raise ValueError(
                 f"shrink_patience must be >= 1, got {shrink_patience}")
@@ -208,15 +221,16 @@ class StreamServer:
         self._dtw_due: set = set()  # sessions whose DTW cadence fired
         self.evict_idle = bool(evict_idle)
         self.autoscale = bool(autoscale)
+        self.min_slots = int(min_slots)
         self.shrink_patience = int(shrink_patience)
         self._low_ticks = 0
         self.use_kernel = (bool(use_kernel) if use_kernel is not None
                            else self.device.type == "cuda")
         self.clock = clock
-        self._ladder = [1]
+        self._ladder = [self.min_slots]
         while self._ladder[-1] < self.max_sessions:
             self._ladder.append(min(self._ladder[-1] * 2, self.max_sessions))
-        self.capacity = 1 if autoscale else self.max_sessions
+        self.capacity = self.min_slots if autoscale else self.max_sessions
         self._base_key = prng.key(seed, device=self.device)
         self._serial = 0
         self._clock = 0
@@ -307,22 +321,17 @@ class StreamServer:
         consecutive rounds.  Returns the merged symbol-delta frame per
         stream: ``{"labels", "endpoints", "n_new", "frames", "bytes"}``.
 
-        Rounds are double-buffered: round ``r`` is dispatched, round
-        ``r+1`` is packed on the host, and only then are round ``r``'s
-        outputs copied to the host, in one transfer.  The DTW monitor runs
-        once at the end, for every session whose cadence fired.
+        Rounds are double-buffered (``_run_rounds``).  The DTW monitor
+        runs once at the end, for every session whose cadence fired.
         """
         wins = {}
         for sid, w in arrivals.items():
             if sid not in self._sessions:
                 raise KeyError(f"unknown session {sid!r} (open it first)")
             wins[sid] = np.asarray(w, np.float32).reshape(-1)
-        deltas = {sid: _new_delta() for sid in wins}
         cap = self.window_cap
-        rounds = max(((len(w) + cap - 1) // cap for w in wins.values()),
-                     default=0)
-        pend = None  # (active, packed outputs, clock) of the round in flight
-        for r in range(rounds):
+
+        def pack_round(r):
             padded = np.zeros((self.capacity, cap), np.float32)
             n_valid = np.zeros((self.capacity,), np.int32)
             active = []
@@ -334,22 +343,40 @@ class StreamServer:
                 padded[sess.slot, : len(part)] = part
                 n_valid[sess.slot] = len(part)
                 active.append((sid, part))
-            flight = None
-            if active:
-                flight = (active, self._dispatch(padded, n_valid), self._clock)
-            # harvest the previous round only after this one is in flight
-            if pend is not None:
-                self._harvest_round(*pend, deltas)
-            pend = flight
-        if pend is not None:
-            self._harvest_round(*pend, deltas)
+            return active, (padded, n_valid)
+
+        rounds = max(((len(w) + cap - 1) // cap for w in wins.values()),
+                     default=0)
+        deltas = self._run_rounds(wins, rounds, pack_round, self._dispatch,
+                                  self._harvest_round)
         self._run_dtw_monitor()
         return _finalize_deltas(deltas)
 
+    def _run_rounds(self, sids, rounds, pack_round, dispatch, harvest):
+        """Run ``rounds`` table steps, double-buffered: round ``r`` is
+        dispatched, round ``r+1`` is packed on the host, and only then are
+        round ``r``'s outputs copied to the host, in one transfer.
+        ``pack_round(r)`` gives the round's ``(active, host arrays)``,
+        ``dispatch(*host arrays)`` its packed outputs, and ``harvest``
+        folds them into the per-stream deltas, which are returned."""
+        deltas = {sid: _new_delta() for sid in sids}
+        pend = None  # (active, packed outputs, clock) of the round in flight
+        for r in range(rounds):
+            active, host = pack_round(r)
+            flight = None
+            if active:
+                flight = (active, dispatch(*host), self._clock)
+            # harvest the previous round only after this one is in flight
+            if pend is not None:
+                harvest(*pend, deltas)
+            pend = flight
+        if pend is not None:
+            harvest(*pend, deltas)
+        return deltas
+
     def _dispatch(self, padded: np.ndarray, n_valid: np.ndarray):
-        """Run one table step; returns its outputs packed into one int32
-        device tensor (``labels | endpoints bits | n_new | emitted |
-        t_seen`` per slot) for a single host transfer."""
+        """Run one raw-in table step; returns its outputs packed for one
+        host transfer (``_pack``)."""
         windows = torch.from_numpy(padded).to(self.device)
         counts = torch.from_numpy(n_valid).to(self.device)
         if self.clock is not None:
@@ -359,6 +386,25 @@ class StreamServer:
             digitize_every_k=self.digitize_every_k,
             use_kernel=self.use_kernel,
             mark=self.clock.mark if self.clock is not None else None)
+        return self._pack(info)
+
+    def _dispatch_pieces(self, *host_args: np.ndarray):
+        """Run one compressed-in table step on the padded ``(endpoints,
+        steps, n_valid, hello, t_seen)``; returns its outputs packed for one
+        host transfer (``_pack``)."""
+        args = [torch.from_numpy(a).to(self.device) for a in host_args]
+        if self.clock is not None:
+            self.clock.start()
+        self._table, info = symed_receive_masked_pieces_table(
+            *args, self.cfg, self._table,
+            digitize_every_k=self.digitize_every_k,
+            use_kernel=self.use_kernel,
+            mark=self.clock.mark if self.clock is not None else None)
+        return self._pack(info)
+
+    def _pack(self, info):
+        """A table step's outputs in one int32 device tensor (``labels |
+        endpoints bits | n_new | emitted | t_seen`` per slot)."""
         d = info["symbol_delta"]
         packed = torch.cat([
             d["labels"], d["endpoints"].view(torch.int32),
@@ -368,17 +414,21 @@ class StreamServer:
         self._clock += 1
         return packed
 
-    def _harvest_round(self, active, packed, clock, deltas) -> None:
-        """Copy one round's outputs to the host and fold them into the
-        books."""
-        host = packed.cpu().numpy()  # the round's one device-to-host copy
+    def _unpack(self, packed):
+        """Copy one round's packed outputs to the host (the round's one
+        device-to-host copy): ``(labels, endpoints, n_new, emitted,
+        t_seen)`` per slot."""
+        host = packed.cpu().numpy()
         n_max = self.cfg.n_max
-        labels = host[:, :n_max]
-        endpoints = host[:, n_max: 2 * n_max].view(np.float32)
-        n_new, emitted, t_seen = (host[:, 2 * n_max + i] for i in range(3))
         if self.clock is not None:
             self.clock.mark("harvest")
             self.clock.collect()
+        return (host[:, :n_max], host[:, n_max: 2 * n_max].view(np.float32),
+                *(host[:, 2 * n_max + i] for i in range(3)))
+
+    def _harvest_round(self, active, packed, clock, deltas) -> None:
+        """Fold one raw-in round's outputs into the books."""
+        labels, endpoints, n_new, emitted, t_seen = self._unpack(packed)
         for sid, part in active:
             sess = self._sessions[sid]
             n = int(n_new[sess.slot])
@@ -394,6 +444,83 @@ class StreamServer:
                 sess.raw.append(part.copy())
                 if sess.chunks % self.dtw_every == 0:
                     self._dtw_due.add(sid)
+
+    def ingest_pieces_many(self, arrivals: Dict[str, dict]) -> Dict[str, dict]:
+        """Compressed-in counterpart of ``ingest_many``.
+
+        Each arrival carries the pieces its sender's compressor finished:
+        ``{"endpoints": (n,) f32, "steps": (n,) i32 arrival steps,
+        "t_seen": the sender's point clock, "t0": its hello,
+        "wire_bytes": the payload's bytes (optional; else
+        ``PIECE_TUPLE_BYTES`` per piece)}``.  Arrivals of more than
+        ``window_cap`` pieces split into consecutive rounds; an arrival of
+        no pieces still advances its session's clock.  Returns the merged
+        symbol-delta frame per stream, as ``ingest_many`` does; rounds are
+        double-buffered the same way.  The DTW monitor needs raw points, so
+        it never fires for these sessions.
+        """
+        pends = {}
+        for sid, a in arrivals.items():
+            if sid not in self._sessions:
+                raise KeyError(f"unknown session {sid!r} (open it first)")
+            pends[sid] = {
+                "endpoints": np.asarray(a["endpoints"], np.float32).reshape(-1),
+                "steps": np.asarray(a["steps"], np.int32).reshape(-1),
+                "t_seen": int(a["t_seen"]),
+                "t0": float(a["t0"]),
+                "wire_bytes": float(a.get("wire_bytes", 0.0)),
+            }
+        cap = self.window_cap
+
+        def pack_round(r):
+            pad_e = np.zeros((self.capacity, cap), np.float32)
+            pad_s = np.zeros((self.capacity, cap), np.int32)
+            n_valid = np.zeros((self.capacity,), np.int32)
+            hello = np.zeros((self.capacity,), np.float32)
+            t_seen_in = np.zeros((self.capacity,), np.int32)
+            active = []
+            for sid, p in pends.items():
+                part_e = p["endpoints"][r * cap: (r + 1) * cap]
+                if r > 0 and not len(part_e):
+                    continue
+                sess = self._sessions[sid]
+                pad_e[sess.slot, : len(part_e)] = part_e
+                pad_s[sess.slot, : len(part_e)] = (
+                    p["steps"][r * cap: (r + 1) * cap])
+                n_valid[sess.slot] = len(part_e)
+                hello[sess.slot] = p["t0"]
+                t_seen_in[sess.slot] = p["t_seen"]
+                active.append((sid, len(part_e)))
+                if r == 0:
+                    self.totals["bytes_in"] += (
+                        p["wire_bytes"]
+                        or PIECE_TUPLE_BYTES * len(p["endpoints"]))
+            return active, (pad_e, pad_s, n_valid, hello, t_seen_in)
+
+        rounds = max((((len(p["endpoints"]) + cap - 1) // cap) or 1
+                      for p in pends.values()), default=0)
+        deltas = self._run_rounds(pends, rounds, pack_round,
+                                  self._dispatch_pieces,
+                                  self._harvest_pieces_round)
+        return _finalize_deltas(deltas)
+
+    def _harvest_pieces_round(self, active, packed, clock, deltas) -> None:
+        """Fold one compressed-in round's outputs into the books: a round
+        counts as a window where it carried pieces, and ``points_in``
+        follows the senders' clocks."""
+        labels, endpoints, n_new, emitted, t_seen = self._unpack(packed)
+        for sid, n_in in active:
+            sess = self._sessions[sid]
+            n = int(n_new[sess.slot])
+            self._account_delta(sess, deltas[sid], labels[sess.slot],
+                                endpoints[sess.slot], n,
+                                bool(emitted[sess.slot]))
+            if n_in:
+                sess.chunks += 1
+            now_seen = int(t_seen[sess.slot])
+            self.totals["points_in"] += max(now_seen - sess.t_seen, 0)
+            sess.t_seen = now_seen
+            sess.last_active = clock
 
     def close(self, stream_id: str) -> dict:
         """Flush the tail, emit the closing delta frame, free the slot.
@@ -498,7 +625,7 @@ class StreamServer:
         """Walk down the ladder once occupancy has stayed at or below a
         quarter of the capacity for ``shrink_patience`` consecutive closes;
         live slots are compacted into the low indices by a pure gather."""
-        if not (self.autoscale and self.capacity > 1):
+        if not (self.autoscale and self.capacity > self.min_slots):
             self._low_ticks = 0
             return
         target = self._ladder[self._ladder.index(self.capacity) - 1]
@@ -509,7 +636,7 @@ class StreamServer:
         if self._low_ticks < self.shrink_patience:
             return
         self._low_ticks = 0
-        while self.autoscale and self.capacity > 1:
+        while self.autoscale and self.capacity > self.min_slots:
             target = self._ladder[self._ladder.index(self.capacity) - 1]
             if len(self._sessions) > target // 2:
                 return
@@ -614,6 +741,7 @@ def main(argv=None):
                           digitize_every_k=args.digitize_every,
                           evict_idle=args.evict, dtw_every=args.dtw_every,
                           autoscale=args.autoscale,
+                          min_slots=args.min_slots,
                           shrink_patience=args.shrink_patience,
                           seed=args.seed, device=args.device)
     data = make_fleet(args.sessions, args.length, seed=args.seed)

@@ -207,7 +207,7 @@ def test_chunked_finish_equals_reference_and_one_shot(splits):
                                           jstate)
         jev.append(e)
         tstate, e = ts_.symed_encode_chunk(torch.from_numpy(ts[pos: pos + n]),
-                                           CFG, tstate)
+                                           CFG, tstate, device="cpu")
         tev.append(e)
         pos += n
     want = js.symed_finish(
@@ -228,9 +228,11 @@ def test_one_point_opening_window():
     every later step by one: ROADMAP Queue C.)"""
     ts = make_stream(np.random.default_rng(21), 120, "walk")
     _, tkey = _key(21)
-    state, first = ts_.symed_encode_chunk(torch.from_numpy(ts[:1]), CFG)
+    state, first = ts_.symed_encode_chunk(torch.from_numpy(ts[:1]), CFG,
+                                          device="cpu")
     assert first["emit"].shape == (1,) and not bool(first["emit"][0])
-    state, rest = ts_.symed_encode_chunk(torch.from_numpy(ts[1:]), CFG, state)
+    state, rest = ts_.symed_encode_chunk(torch.from_numpy(ts[1:]), CFG, state,
+                                         device="cpu")
     got = ts_.symed_finish({k: torch.cat([first[k], rest[k]]) for k in first},
                            state, CFG, tkey, torch.from_numpy(ts),
                            device="cpu")

@@ -391,12 +391,14 @@ class TestPortContract:
 
 
 def test_port_imports_no_jax():
-    """``import repro_torch`` plus one CPU service round with the DTW
-    monitor on leaves jax and every module of the JAX package out of
+    """``import repro_torch``, ``repro_torch.core`` and the transport, one
+    CPU service round with the DTW monitor on and one compressed-in round
+    leave jax and every module of the JAX package out of
     ``sys.modules``."""
     code = (
         "import sys, numpy as np\n"
-        "import repro_torch\n"
+        "import repro_torch, repro_torch.core\n"
+        "import repro_torch.launch.transport\n"
         "from repro_torch.launch.stream import StreamServer\n"
         "from repro_torch.core.symed import SymEDConfig\n"
         "cfg = SymEDConfig(n_max=32, k_max=4, len_max=16, lloyd_iters=2)\n"
@@ -406,6 +408,11 @@ def test_port_imports_no_jax():
         "srv.ingest('a', np.sin(np.arange(40, dtype=np.float32) / 3))\n"
         "assert srv.session_stats('a')['dtw'] is not None\n"
         "srv.close('a')\n"
+        "srv.open('p')\n"
+        "d = srv.ingest_pieces_many({'p': {'endpoints': [0.5, -0.25, 1.0],"
+        " 'steps': [4, 9, 15], 't_seen': 16, 't0': 0.0}})\n"
+        "assert d['p']['n_new'] == 3, d\n"
+        "srv.close('p')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print('BAD', bad)\n"
