@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of SymED on one GPU and check it.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``.  Seven phases,
+Run from the root of a checkout: ``python3 chip_smoke.py``.  Eight phases,
 each raising on failure:
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
@@ -56,7 +56,25 @@ each raising on failure:
    TCP: a ``TransportServer`` on the card (16 slots, autoscaled from 4)
    in a thread, and one ``SenderClient`` compressing on the card that
    interleaves 8 sessions (4 pieces, 4 raw) on one socket, each held
-   against ``symed_encode`` on the card.
+   against ``symed_encode`` on the card;
+8. trace-driven replay through the flight recorder
+   (``repro_torch.workload.replay_trace``, ``repro_torch.obs``): (a) the
+   five scenarios of the zoo at their defaults, each replayed twice on the
+   card (fingerprints equal), verified against ``symed_encode`` by the rule
+   of ``transport.check_deltas`` and held to the CPU port's replay of the
+   same trace (every counter equal, pieces bitwise, at least 99% of
+   symbols equal), ``mixed_fleet`` once more with ``obs=False`` (the same
+   fingerprint and host syncs), each scenario's symbol latency, queue
+   depths, evict rate and SLO verdict printed; (b) ``flash_crowd`` at the
+   paper's fleet (256 sessions x 512 points in 64-point windows, the
+   paper's config, a 256-slot table autoscaled from 32 with ``pretrace``),
+   its rounds, latency, syncs, launches, resizes and retraces printed and 8
+   sessions held against ``symed_encode``; (c) ``mixed_fleet`` over
+   loopback TCP with an ``ObsHTTPServer``: ``/metrics`` against
+   ``report()`` and the transport's counts, ``/trace`` as Chrome trace
+   JSON, the delta hash and schedule-determined counters against (a)'s; (d)
+   the stream CLI on the card with ``--workload bursty --verify
+   --dtw-every 2``, through the DTW kernel.
 
 The last two lines are a JSON summary of every kernel and
 ``{"ok": true, "device": {...}}``.
@@ -119,6 +137,14 @@ EWMA_LARGE_TOL = ({"rtol": 1e-4, "atol": 0.0}, {"rtol": 1e-3, "atol": 1e-2})
 # one CUDA source each; kmeans_assign.cu holds the half-step and the Lloyd
 # kernel
 SOURCES = ("kmeans_assign", "dtw", "ewma")
+# phase 8: the zoo (the non-legacy scenarios, at their defaults) and the
+# paper's fleet on flash_crowd: the cohort of 192 sessions lands in one tick
+ZOO = ("diurnal", "flash_crowd", "dropout_churn", "mixed_fleet",
+       "slot_churn")
+SCALE = dict(sessions=256, length=512, window=64)
+SCALE_SERVER = dict(max_sessions=256, min_slots=32, autoscale=True,
+                    shrink_patience=2, pretrace=True)
+SCALE_CHECKED = 8  # of its sessions held against symed_encode
 LLOYD_ITERS = 10  # the paper's lloyd_iters
 LLOYD_EXTRA = [(2, 30000, 2, 8)]  # pieces too many for shared memory
 
@@ -593,6 +619,31 @@ def ewma_phase(torch, dev):
     return measured
 
 
+def _reset_launches():
+    from repro_torch.core import digitize
+    from repro_torch.kernels.dtw import dtw_cuda
+    from repro_torch.kernels.ewma import ewma_scan_cuda
+    from repro_torch.kernels.kmeans import kmeans_assign_cuda, kmeans_lloyd_cuda
+
+    for fn in (kmeans_assign_cuda, kmeans_lloyd_cuda, dtw_cuda,
+               ewma_scan_cuda):
+        fn.launches = 0
+    digitize.host_syncs = 0
+
+
+def _launches():
+    """The kernels' launches and the host syncs since ``_reset_launches``."""
+    from repro_torch.core import digitize
+    from repro_torch.kernels.dtw import dtw_cuda
+    from repro_torch.kernels.ewma import ewma_scan_cuda
+    from repro_torch.kernels.kmeans import kmeans_assign_cuda, kmeans_lloyd_cuda
+
+    return {"kmeans_lloyd": kmeans_lloyd_cuda.launches,
+            "kmeans_assign": kmeans_assign_cuda.launches,
+            "dtw": dtw_cuda.launches, "ewma": ewma_scan_cuda.launches,
+            "host_syncs": digitize.host_syncs}
+
+
 def _serve(torch, cfg, data, *, device, use_kernel, window, clock=None,
            dtw_every=0, check_rows=(), rows=None):
     """Round-robin arrivals of every row of ``data``, then close all.
@@ -634,8 +685,8 @@ def _serve(torch, cfg, data, *, device, use_kernel, window, clock=None,
     wall = time.perf_counter() - t0
     stats = {"wall": wall, "ingest": t_ingest, "rounds": rounds,
              "points": int(server.totals["points_in"]),
-             "dtw_seconds": server.totals["dtw_seconds"],
-             "dtw_readings": server.totals["dtw_readings"]}
+             "dtw_seconds": server.monitor["dtw_seconds"],
+             "dtw_readings": server.monitor["dtw_readings"]}
     return _session_outputs(labels, ends, closed), stats
 
 
@@ -750,14 +801,61 @@ def _cpu_reference():
             "seconds": time.perf_counter() - t0}
 
 
+def _closed_outputs(res):
+    """Each fed session's sender/wire outputs and symbols, from the close
+    results of a ``ReplayResult`` (numpy, picklable)."""
+    out = {}
+    for sid, r in res.closed.items():
+        if r["out"] is None:
+            continue
+        n = int(r["n_pieces"])
+        out[sid] = {"n_pieces": n, "t_seen": int(r["t_seen"]),
+                    "pieces_len": r["out"]["pieces_len"][:n],
+                    "pieces_inc": r["out"]["pieces_inc"][:n],
+                    "labels": r["out"]["symbols_online"][:n]}
+    return out
+
+
+def _zoo_reference():
+    """The CPU port's replay of each zoo scenario at its defaults."""
+    import torch
+
+    from repro_torch.workload import Workload, replay_trace
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    t0 = time.perf_counter()
+    out = {}
+    for name in ZOO:
+        wl = Workload(name)
+        res = replay_trace(wl.trace(), server_kw=wl.server_kw(),
+                           device="cpu")
+        out[name] = {"counters": res.counters,
+                     "sessions": _closed_outputs(res)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _cpu_worker(conn) -> None:
-    """Worker process: send ``("ok", _cpu_reference())`` or the failure."""
+    """Worker process: send ``("ok", _cpu_reference())``, then
+    ``("ok", _zoo_reference())``, or the failure."""
     try:
         conn.send(("ok", _cpu_reference()))
+        conn.send(("ok", _zoo_reference()))
     except BaseException:
         conn.send(("error", traceback.format_exc()))
     finally:
         conn.close()
+
+
+def _recv(cpu_results, what):
+    t_wait = time.perf_counter()
+    status, got = cpu_results.recv()
+    if status != "ok":
+        raise RuntimeError(f"the CPU port's worker failed:\n{got}")
+    print(f"CPU port's side of {what} ({got['seconds']:.1f} s in a worker "
+          f"process; waited {time.perf_counter() - t_wait:.1f} s for it)",
+          flush=True)
+    return got
 
 
 def _against_cpu(on_gpu, on_cpu, what, dtw_every=0):
@@ -820,11 +918,7 @@ def end_to_end_phase(torch, dev):
     kernels' launches and the kernel run's sessions."""
     import numpy as np
 
-    from repro_torch.core import digitize
     from repro_torch.data.synthetic import make_fleet
-    from repro_torch.kernels.dtw import dtw_cuda
-    from repro_torch.kernels.ewma import ewma_scan_cuda
-    from repro_torch.kernels.kmeans import kmeans_assign_cuda, kmeans_lloyd_cuda
     from repro_torch.launch.stream import PhaseClock
 
     cfg = _paper_cfg()
@@ -832,26 +926,22 @@ def end_to_end_phase(torch, dev):
     clock = PhaseClock(torch.device(dev))
 
     check_rows = CHECK_ROWS
-    kmeans_assign_cuda.launches = 0
-    kmeans_lloyd_cuda.launches = 0
-    dtw_cuda.launches = 0
-    ewma_scan_cuda.launches = 0
-    digitize.host_syncs = 0
+    _reset_launches()
     krn, t_krn = _serve(torch, cfg, data, device=dev, use_kernel=True,
                         window=WINDOW, clock=clock, dtw_every=DTW_EVERY,
                         check_rows=check_rows)
-    launches = {"kmeans_lloyd": kmeans_lloyd_cuda.launches,
-                "dtw": dtw_cuda.launches}
-    syncs = digitize.host_syncs
+    counts = _launches()
+    launches = {name: counts[name] for name in ("kmeans_lloyd", "dtw")}
+    syncs = counts["host_syncs"]
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"the service never launched the {name} "
                                  "kernel")
-    if kmeans_assign_cuda.launches:
+    if counts["kmeans_assign"]:
         raise AssertionError(f"the service launched the half-step kernel "
-                             f"{kmeans_assign_cuda.launches} times: its Lloyd "
+                             f"{counts['kmeans_assign']} times: its Lloyd "
                              "loops run in the Lloyd kernel")
-    if ewma_scan_cuda.launches:
+    if counts["ewma"]:
         raise AssertionError("the service launched the ewma kernel: its "
                              "sender normalizes one point at a time")
     readings = [res["dtw"] for res in krn.values()]
@@ -924,12 +1014,7 @@ def cross_device_phase(torch, dev, krn, cpu_results):
     small_cfg, small_data = _small_case()
     small, _ = _serve(torch, small_cfg, small_data, device=dev,
                       use_kernel=True, window=32)
-    t_wait = time.perf_counter()
-    status, cpu = cpu_results.recv()
-    if status != "ok":
-        raise RuntimeError(f"the CPU port's worker failed:\n{cpu}")
-    print(f"CPU port's side ({cpu['seconds']:.1f} s in a worker process; "
-          f"waited {time.perf_counter() - t_wait:.1f} s for it)", flush=True)
+    cpu = _recv(cpu_results, "phase 6")
     _against_cpu(krn, cpu["paper"], "paper config, 8 sessions",
                  dtw_every=DTW_EVERY)
     _against_cpu(small, cpu["small"], "small config")
@@ -1053,11 +1138,7 @@ def compressed_in_phase(torch, dev, krn, krn_launches):
     """Phase 7: (a) the compressed-in service against phase 6's raw-in
     kernel run ``krn``; (b) the same path over loopback TCP against
     ``symed_encode`` on the card."""
-    from repro_torch.core import digitize
     from repro_torch.data.synthetic import make_fleet
-    from repro_torch.kernels.dtw import dtw_cuda
-    from repro_torch.kernels.ewma import ewma_scan_cuda
-    from repro_torch.kernels.kmeans import kmeans_assign_cuda, kmeans_lloyd_cuda
     from repro_torch.launch.stream import PhaseClock
     from repro_torch.launch.transport import check_deltas, session_seed
 
@@ -1070,14 +1151,12 @@ def compressed_in_phase(torch, dev, krn, krn_launches):
     torch.cuda.synchronize()
     t_sender = time.perf_counter() - t0
     clock = PhaseClock(torch.device(dev))
-    for fn in (kmeans_assign_cuda, kmeans_lloyd_cuda, dtw_cuda,
-               ewma_scan_cuda):
-        fn.launches = 0
-    digitize.host_syncs = 0
+    _reset_launches()
     pcs, t_pcs = _receiver_half(torch, cfg, rounds, tails, dev, WINDOW, clock)
-    lloyd, syncs = kmeans_lloyd_cuda.launches, digitize.host_syncs
-    others = {"half-step": kmeans_assign_cuda.launches,
-              "DTW": dtw_cuda.launches, "EWMA": ewma_scan_cuda.launches}
+    counts = _launches()
+    lloyd, syncs = counts["kmeans_lloyd"], counts["host_syncs"]
+    others = {"half-step": counts["kmeans_assign"], "DTW": counts["dtw"],
+              "EWMA": counts["ewma"]}
     if lloyd <= 0:
         raise AssertionError("the compressed-in service never launched the "
                              "Lloyd kernel")
@@ -1131,6 +1210,326 @@ def compressed_in_phase(torch, dev, krn, krn_launches):
           f"n_pieces and endpoints bitwise equal to symed_encode on the "
           f"card, symbols {agree}/{total} agree; pieces_ratio "
           f"{summ['pieces_ratio']:.4f}; wall {wall:.2f} s", flush=True)
+
+
+def _lat(res):
+    lat = res.latency
+    return (f"symbol latency p50/p99/p999 {lat['p50_ms']:.3f}/"
+            f"{lat['p99_ms']:.3f}/{lat['p999_ms']:.3f} ms over "
+            f"{int(lat['count'])} symbols")
+
+
+def zoo_phase(torch, dev):
+    """Phase 8 (a): returns each scenario's first replay on the card."""
+    from repro_torch.workload import Workload, check_slos, replay_trace
+
+    runs = {}
+    for name in ZOO:
+        wl = Workload(name)
+        trace = wl.trace()
+        t0 = time.perf_counter()
+        first = replay_trace(trace, server_kw=wl.server_kw(), verify=True,
+                             device=dev)
+        _reset_launches()  # the second replay's: no verification in them
+        second = replay_trace(trace, server_kw=wl.server_kw(), device=dev)
+        n = _launches()
+        wall = time.perf_counter() - t0
+        if first.fingerprint() != second.fingerprint():
+            raise AssertionError(f"zoo {name}: two replays on the card give "
+                                 "two fingerprints")
+        if n["kmeans_lloyd"] <= 0:
+            raise AssertionError(f"zoo {name}: no Lloyd kernel launch")
+        if first.latency["count"] <= 0:
+            raise AssertionError(f"zoo {name}: no symbol latency recorded")
+        measured = first.measured()
+        violations = check_slos(measured, wl.slos())
+        c, q = first.counters, first.queue
+        print(f"zoo {name}: {len(trace.sessions)} sessions, "
+              f"{int(c['steps'])} rounds, fingerprints equal over 2 "
+              f"replays, {first.verified} sessions verified; "
+              f"{_lat(first)}; queue depth max {q['max_depth']:.0f} mean "
+              f"{q['mean_depth']:.3f}; evict rate {first.evict_rate:.4f}; "
+              f"Lloyd launches {n['kmeans_lloyd']}, host syncs "
+              f"{n['host_syncs']} ({n['host_syncs'] / c['steps']:.1f} per "
+              f"round) per replay; {second.wall_seconds:.2f} s per replay "
+              f"({wall:.2f} s both, with the verification); SLOs "
+              + ("met" if not violations else
+                 "VIOLATED (" + "; ".join(map(str, violations)) + ")"),
+              flush=True)
+        runs[name] = first
+
+    wl = Workload("mixed_fleet")
+    syncs, prints = [], []
+    for obs in (None, False):
+        _reset_launches()
+        res = replay_trace(wl.trace(), server_kw=wl.server_kw(), obs=obs,
+                           device=dev)
+        syncs.append(_launches()["host_syncs"])
+        prints.append(res.fingerprint())
+    if prints[0] != prints[1] or syncs[0] != syncs[1]:
+        raise AssertionError(f"zoo mixed_fleet, obs on vs off: host syncs "
+                             f"{syncs}, fingerprints equal: "
+                             f"{prints[0] == prints[1]}")
+    print(f"zoo mixed_fleet, obs on vs off: the same fingerprint and "
+          f"{syncs[0]} host syncs in both", flush=True)
+    return runs
+
+
+def zoo_against_cpu(runs, cpu):
+    """Phase 8 (a): each scenario on the card against the CPU port's
+    replay: counters equal, sender/wire outputs bitwise, 99% of symbols."""
+    agree = total = 0
+    for name, res in runs.items():
+        ref = cpu[name]
+        if res.counters != ref["counters"]:
+            diff = {k: (v, ref["counters"].get(k))
+                    for k, v in res.counters.items()
+                    if v != ref["counters"].get(k)}
+            raise AssertionError(f"zoo {name}, cuda vs cpu: counters {diff}")
+        mine = _closed_outputs(res)
+        if set(mine) != set(ref["sessions"]):
+            raise AssertionError(f"zoo {name}, cuda vs cpu: sessions differ")
+        for sid, a in mine.items():
+            b = ref["sessions"][sid]
+            for key in ("n_pieces", "t_seen"):
+                if a[key] != b[key]:
+                    raise AssertionError(f"zoo {name} {sid}: {key} differs")
+            for key in ("pieces_len", "pieces_inc"):
+                if not (a[key] == b[key]).all():
+                    raise AssertionError(f"zoo {name} {sid}: {key} differs")
+            agree += int((a["labels"] == b["labels"]).sum())
+            total += a["n_pieces"]
+    if agree < 0.99 * total:
+        raise AssertionError(f"zoo, cuda vs cpu: symbols {agree}/{total}")
+    print(f"zoo, cuda vs cpu port: every counter equal in all "
+          f"{len(runs)} scenarios, pieces bitwise, symbols {agree}/{total} "
+          f"agree", flush=True)
+
+
+def _check_against_encode(torch, res, trace, cfg, dev, sids):
+    """Sessions of a replay against ``symed_encode`` on the card of the
+    points each ingested: ``n_pieces`` and the pieces bitwise, at least 99%
+    of symbols.  Returns (agreeing symbols, total)."""
+    from repro_torch.core import prng
+    from repro_torch.core.symed import symed_encode
+    from repro_torch.data.synthetic import make_fleet
+    from repro_torch.launch.transport import session_seed
+
+    data = make_fleet(trace.n_streams, trace.length, seed=trace.seed)
+    got = _closed_outputs(res)
+    agree = total = 0
+    for sid in sids:
+        a = got[sid]
+        ts = data[trace.sessions[sid]["stream"], : a["t_seen"]]
+        ref = symed_encode(torch.from_numpy(ts), cfg,
+                           prng.key(session_seed(sid, trace.seed)),
+                           reconstruct=False, device=dev)
+        n = int(ref["n_pieces"])
+        if n != a["n_pieces"]:
+            raise AssertionError(f"{sid}: n_pieces {a['n_pieces']} against "
+                                 f"symed_encode's {n}")
+        for key in ("pieces_len", "pieces_inc"):
+            if not (ref[key][:n].cpu().numpy() == a[key]).all():
+                raise AssertionError(f"{sid}: {key} differs from "
+                                     "symed_encode's")
+        ok = int((ref["symbols_online"][:n].cpu().numpy()
+                  == a["labels"]).sum())
+        if ok < 0.99 * n:
+            raise AssertionError(f"{sid}: symbols {ok}/{n}")
+        agree += ok
+        total += n
+    return agree, total
+
+
+def scale_phase(torch, dev):
+    """Phase 8 (b): flash_crowd at the paper's fleet."""
+    from repro_torch.launch.stream import StreamServer
+    from repro_torch.obs import Observability
+    from repro_torch.workload import Workload, replay_trace
+
+    cfg = _paper_cfg()
+    wl = Workload("flash_crowd", **SCALE)
+    trace = wl.trace()
+    obs = Observability(trace_capacity=65536)
+    _reset_launches()
+    server = StreamServer(cfg, window_cap=trace.window, device=dev, obs=obs,
+                          **SCALE_SERVER)
+    res = replay_trace(trace, cfg=cfg, server=server)
+    torch.cuda.synchronize()
+    n = _launches()
+    snap = obs.snapshot()
+    retraces = snap["counters"]["symed_table_retraces_total"]
+    pretrace = [ev for ev in obs.tracer.events()
+                if ev[0] == "stream.pretrace"]
+    c = res.counters
+    rounds = int(c["steps"])
+    if n["kmeans_lloyd"] <= 0 or retraces != 0 or len(pretrace) != 1:
+        raise AssertionError(f"at scale: Lloyd launches {n['kmeans_lloyd']}, "
+                             f"retraces {retraces}, pretrace spans "
+                             f"{len(pretrace)}")
+    if c["opened"] != SCALE["sessions"] or c["points_in"] != (
+            SCALE["sessions"] * SCALE["length"]):
+        raise AssertionError(f"at scale: counters {c}")
+    tick = snap["histograms"]["symed_ingest_tick_seconds"]
+    spans = {}
+    for ev in obs.tracer.events():
+        if ev[1] == "X" and ev[0].startswith("stream."):
+            spans[ev[0]] = spans.get(ev[0], 0) + ev[3]
+    sids = sorted(trace.sessions)[:: SCALE["sessions"] // SCALE_CHECKED]
+    t0 = time.perf_counter()
+    agree, total = _check_against_encode(torch, res, trace, cfg, dev, sids)
+    print(f"at scale: flash_crowd, {SCALE['sessions']} sessions x "
+          f"{SCALE['length']} points in {SCALE['window']}-point windows, "
+          f"the paper's config, table {SCALE_SERVER['min_slots']}.."
+          f"{SCALE_SERVER['max_sessions']} slots; {rounds} rounds, "
+          f"{res.wall_seconds:.2f} s ({1e3 * res.wall_seconds / rounds:.2f} "
+          f"ms of wall per round, closes included; round latency mean "
+          f"{1e3 * tick['mean']:.2f} ms, p99 {1e3 * tick['p99']:.2f} ms), "
+          f"{c['points_in'] / res.wall_seconds:.1f} points/s", flush=True)
+    print(f"at scale: {_lat(res)} (the paper: 42 ms per symbol on one "
+          f"CPU); Lloyd launches {n['kmeans_lloyd']}, host syncs "
+          f"{n['host_syncs']} ({n['host_syncs'] / rounds:.1f} per round), "
+          f"DTW, half-step and EWMA launches {n['dtw']}, "
+          f"{n['kmeans_assign']}, {n['ewma']}; grows {int(c['grows'])}, "
+          f"shrinks {int(c['shrinks'])}, evicted {int(c['evicted'])}; "
+          f"symed_table_retraces_total {retraces:.0f}; pretrace warm-up "
+          f"{1e-9 * pretrace[0][3]:.3f} s for capacities "
+          f"{pretrace[0][4]['capacities']}; queue depth max "
+          f"{res.queue['max_depth']:.0f}", flush=True)
+    print("at scale: host time per round by span: "
+          + ", ".join(f"{name} {1e-6 * ns / rounds:.2f} ms"
+                      for name, ns in spans.items()
+                      if name != "stream.pretrace"), flush=True)
+    print(f"at scale: {len(sids)} sessions held against symed_encode on the "
+          f"card: n_pieces and pieces bitwise, symbols {agree}/{total} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def _prom(text, series):
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.rsplit(" ", 1)[1])
+    raise AssertionError(f"series {series!r} not in /metrics")
+
+
+def tcp_replay_phase(torch, dev, inproc):
+    """Phase 8 (c): ``mixed_fleet`` over loopback TCP with the exporter,
+    against (a)'s in-process replay ``inproc``."""
+    import urllib.request
+
+    from repro_torch.launch.stream import StreamServer
+    from repro_torch.obs import Observability
+    from repro_torch.obs.export import ObsHTTPServer
+    from repro_torch.workload import Workload, replay_trace
+    from repro_torch.workload.replay import LOOSE_COUNTER_KEYS, _default_cfg
+
+    wl = Workload("mixed_fleet")
+    trace = wl.trace()
+    obs = Observability()
+    # the zoo's config: the replay engine's default
+    server = StreamServer(_default_cfg(), window_cap=trace.window, device=dev,
+                          obs=obs, **wl.server_kw())
+    exporter = ObsHTTPServer(obs, port=0)
+    try:
+        _reset_launches()
+        res = replay_trace(trace, server=server, transport=True, verify=True)
+        n = _launches()
+        got = {}
+        for path in ("/metrics", "/metrics.json", "/trace"):
+            with urllib.request.urlopen(exporter.url + path,
+                                        timeout=30) as resp:
+                got[path] = resp.read().decode()
+    finally:
+        exporter.close()
+    rep = server.report(res.wall_seconds)
+    text = got["/metrics"]
+    n_sessions = len(trace.sessions)
+    checks = {
+        "symed_points_in_total": rep["points_in"],
+        "symed_symbols_out_total": rep["symbols_out"],
+        "symed_frames_out_total": rep["frames_out"],
+        "symed_sessions_opened_total": n_sessions,
+        "symed_sessions_closed_total": n_sessions,
+        'transport_frames_in_total{type="open"}': n_sessions,
+        'transport_frames_in_total{type="close"}': n_sessions,
+        "transport_sessions_closed_total": n_sessions,
+    }
+    for series, want in checks.items():
+        if _prom(text, series) != want:
+            raise AssertionError(f"/metrics {series} = {_prom(text, series)}"
+                                 f", report/transport: {want}")
+    for series in ('transport_frames_in_total{type="data"}',
+                   "transport_rx_bytes_total", "transport_tx_bytes_total",
+                   "symed_symbol_latency_seconds_count"):
+        if not _prom(text, series) > 0:
+            raise AssertionError(f"/metrics {series} is 0")
+    snap = json.loads(got["/metrics.json"])
+    if snap["counters"]["symed_points_in_total"] != rep["points_in"]:
+        raise AssertionError("/metrics.json disagrees with report()")
+    names = {ev["name"] for ev in json.loads(got["/trace"])["traceEvents"]}
+    if not (any(x.startswith("stream.") for x in names)
+            and any(x.startswith("transport.") for x in names)):
+        raise AssertionError(f"/trace names: {sorted(names)}")
+    for key in LOOSE_COUNTER_KEYS:
+        if res.counters[key] != inproc.counters[key]:
+            raise AssertionError(f"tcp vs in-process: {key} "
+                                 f"{res.counters[key]} != "
+                                 f"{inproc.counters[key]}")
+    if res.delta_sha256 != inproc.delta_sha256:
+        raise AssertionError("tcp vs in-process: the delta hash differs")
+    if n["kmeans_lloyd"] <= 0:
+        raise AssertionError("tcp replay: no Lloyd kernel launch")
+    print(f"tcp replay: mixed_fleet, {n_sessions} sessions over loopback "
+          f"TCP, {res.verified} verified; /metrics agrees with report() and "
+          f"the transport's counts ({len(text.splitlines())} lines), "
+          f"/trace {len(names)} span names (stream.* and transport.*); "
+          f"the delta hash and {', '.join(LOOSE_COUNTER_KEYS)} equal the "
+          f"in-process replay's; {_lat(res)}; decode p99 "
+          f"{1e3 * snap['histograms']['transport_decode_seconds']['p99']:.3f}"
+          f" ms, route p99 "
+          f"{1e3 * snap['histograms']['transport_route_seconds']['p99']:.3f}"
+          f" ms; Lloyd launches {n['kmeans_lloyd']}; wall "
+          f"{res.wall_seconds:.2f} s", flush=True)
+
+
+def cli_phase(torch, dev):
+    """Phase 8 (d): the stream CLI on the card, through the DTW kernel.
+    ``--max-slots 8``: bursty's 6 sessions are all open at once, which the
+    CLI's default 4-slot table refuses without ``--evict`` (the
+    reference's CLI too)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.launch.stream import main as stream_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_out = os.path.join(tmp, "stream_trace.json")
+        out = io.StringIO()
+        _reset_launches()
+        with contextlib.redirect_stdout(out):
+            rep = stream_main(["--workload", "bursty", "--verify",
+                               "--dtw-every", "2", "--max-slots", "8",
+                               "--trace-out", trace_out, "--device", dev])
+        n = _launches()
+        with open(trace_out) as f:
+            doc = json.load(f)
+    text = out.getvalue()
+    print("\n".join("cli | " + line for line in text.splitlines()),
+          flush=True)
+    if not any(line.startswith("obs_summary ") for line in text.splitlines()):
+        raise AssertionError("the stream CLI printed no obs_summary")
+    if "delta equivalence       : OK" not in text:
+        raise AssertionError("the stream CLI did not verify")
+    if n["dtw"] <= 0 or n["kmeans_lloyd"] <= 0:
+        raise AssertionError(f"the stream CLI's launches: {n}")
+    names = {ev["name"] for ev in doc["traceEvents"]}
+    if "stream.dtw_monitor" not in names:
+        raise AssertionError(f"trace names: {sorted(names)}")
+    print(f"stream CLI on the card: {int(rep['opened'])} sessions, DTW "
+          f"kernel launches {n['dtw']}, Lloyd launches {n['kmeans_lloyd']}, "
+          f"host syncs {n['host_syncs']}; the trace file loads "
+          f"({len(doc['traceEvents'])} events)", flush=True)
 
 
 def main() -> int:
@@ -1204,6 +1603,17 @@ def _card_phases(torch, dev, smi, cpu_results) -> int:
 
     phase("end to end: cuda against the CPU port")
     cross_device_phase(torch, dev, krn, cpu_results)
+
+    phase("replay (a): the scenario zoo")
+    zoo = zoo_phase(torch, dev)
+    phase("replay (b): flash_crowd at the paper's fleet")
+    scale_phase(torch, dev)
+    phase("replay (c): mixed_fleet over loopback TCP, scraped")
+    tcp_replay_phase(torch, dev, zoo["mixed_fleet"])
+    phase("replay (d): the stream CLI")
+    cli_phase(torch, dev)
+    phase("replay (a): the zoo against the CPU port")
+    zoo_against_cpu(zoo, _recv(cpu_results, "phase 8 (a)"))
     # the half-step's and the ewma kernel's launches are their own entry
     # points' (phases 3 and 5): the service launches neither
     for name in ("kmeans_assign", "ewma"):

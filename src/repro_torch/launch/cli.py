@@ -1,18 +1,17 @@
 """Shared argparse surface for the port's launch CLIs.
 
 Port of ``repro.launch.cli``: the same flags, defaults and checks, and the
-same error messages letter for letter, so that the port's CLIs (stream
-and transport) accept and reject what the reference's accept and reject.
-Only the groups and checks of flags that a port CLI mounts are here:
-``--pretrace`` waits for a per-capacity CUDA graph, ``--devices`` and the
-metrics flags for the parts of the reference that use them (the sharded
-table and the flight recorder).
+same error messages letter for letter, so that the port's CLIs (stream,
+transport and ``repro_torch.workload``) accept and reject what the
+reference's accept and reject.  Only the groups and checks of flags that a
+port CLI mounts are here: ``--devices`` waits for the sharded table.
 """
 from __future__ import annotations
 
 import argparse
 
-__all__ = ["add_symed_args", "add_slot_table_args", "validate_shared_args"]
+__all__ = ["add_symed_args", "add_metrics_args", "add_slot_table_args",
+           "validate_shared_args"]
 
 
 def add_symed_args(ap: argparse.ArgumentParser) -> None:
@@ -25,6 +24,19 @@ def add_symed_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--seed", type=int, default=0,
                     help="base seed: synthetic data + per-session "
                          "digitizer keys")
+
+
+def add_metrics_args(ap: argparse.ArgumentParser) -> None:
+    """Flight-recorder export: Prometheus endpoint + Perfetto span trace."""
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve Prometheus /metrics (+ /metrics.json, "
+                         "/trace) on this port for the run's duration")
+    ap.add_argument("--metrics-linger", type=float, default=0.0,
+                    help="keep the metrics endpoint up this many seconds "
+                         "after the run finishes (scrape window)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the span ring as Chrome trace-event JSON "
+                         "(load at ui.perfetto.dev)")
 
 
 def add_slot_table_args(ap: argparse.ArgumentParser, *,
@@ -44,6 +56,9 @@ def add_slot_table_args(ap: argparse.ArgumentParser, *,
     ap.add_argument("--shrink-patience", type=int, default=3,
                     help="consecutive low-occupancy ticks before the table "
                          "walks down the ladder (1: shrink immediately)")
+    ap.add_argument("--pretrace", action="store_true",
+                    help="step every ladder capacity once at server init "
+                         "(no serving round is the first at its capacity)")
 
 
 def validate_shared_args(ap: argparse.ArgumentParser, args) -> None:
@@ -80,3 +95,8 @@ def validate_shared_args(ap: argparse.ArgumentParser, args) -> None:
                  f"[1, --max-slots {args.max_slots}]")
     if has("shrink_patience") and args.shrink_patience < 1:
         ap.error(f"--shrink-patience must be >= 1, got {args.shrink_patience}")
+    if has("metrics_port") and not 0 <= args.metrics_port <= 65535:
+        ap.error(f"--metrics-port must be in [0, 65535], got "
+                 f"{args.metrics_port}")
+    if has("metrics_linger") and args.metrics_linger < 0:
+        ap.error(f"--metrics-linger must be >= 0, got {args.metrics_linger}")

@@ -29,15 +29,25 @@ autoscale ladder, or with ``evict_idle`` closing the least-recently-active
 session, whose final output is parked in ``server.evicted``); ``close``
 flushes the tail, emits the closing delta frame and frees the slot.
 
-CLI (round-robin arrivals from ``make_fleet``):
+The flight recorder (``repro_torch.obs``, ``obs=``) times every round's
+pack, dispatch and harvest on the host clock, records each symbol's
+latency from its window's arrival to its delta frame
+(``symed_symbol_latency_seconds``, the paper's 42 ms metric) and exposes
+the totals as Prometheus series.
+
+CLI (trace-driven, as the reference's: arrivals come from a
+``repro_torch.workload`` trace -- ``--workload`` names a scenario or a
+recorded ``workload_trace/v1`` jsonl, and the legacy ``--arrival-pattern``
+values are deprecated shims that synthesize the equivalent trace):
 
     PYTHONPATH=src python -m repro_torch.launch.stream --sessions 6 \
-        --max-slots 4 --length 384 --window 48 --evict --dtw-every 2 \
-        --device cpu
+        --max-slots 4 --length 384 --window 48 --workload bursty --evict \
+        --verify --dtw-every 2 --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional
@@ -57,8 +67,17 @@ from repro_torch.core.symed import (
     symed_receive_masked_chunk_table, symed_receive_masked_pieces_table,
 )
 from repro_torch.kernels import ops
+from repro_torch.obs import annotate, as_obs
 
 __all__ = ["StreamServer", "PhaseClock", "main"]
+
+# the shared inert context of an unannotated table step (stateless and
+# reentrant, so one instance serves every round)
+_NULL_ANN_CTX = contextlib.nullcontext()
+
+
+def _null_annotation(name: str):
+    return _NULL_ANN_CTX
 
 
 def _new_delta() -> dict:
@@ -176,6 +195,22 @@ class StreamServer:
       clock: a ``PhaseClock`` that times the phases of every round
         (optional): sender (raw in) or wire (compressed in), digitize,
         harvest.
+      pretrace: at construction, step a blank table once raw in and once
+        compressed in (zero valid points, no state kept) at every capacity
+        on the autoscale ladder, so that no serving round is the first
+        step at its capacity.  Eager PyTorch keeps no trace cache; what a
+        first step pays is the caching allocator's growth to the new
+        shapes.  ``symed_table_retraces_total`` counts the (mode,
+        capacity) pairs first stepped after construction: 0 under
+        ``pretrace``.
+      obs: the flight recorder (``repro_torch.obs``).  ``None`` (default)
+        makes a fresh enabled ``Observability``; ``False`` disables
+        recording (shared null instruments); passing a bundle lets the
+        transport front end share one registry, which admits one
+        ``StreamServer`` (its totals-backed callback series are
+        per-server).  Spans and latency stamps read the host clock, so
+        recording adds no device sync: a round's syncs stay the digitize
+        loops' tests and its one harvest copy.
     """
 
     def __init__(
@@ -195,6 +230,8 @@ class StreamServer:
         seed: int = 0,
         device=None,
         clock: Optional[PhaseClock] = None,
+        pretrace: bool = False,
+        obs=None,
     ):
         if max_sessions < 1:
             raise ValueError(f"max_sessions must be >= 1, got {max_sessions}")
@@ -237,13 +274,99 @@ class StreamServer:
         self._sessions: Dict[str, _Session] = {}
         self._free = list(range(self.capacity))
         self.evicted: Dict[str, dict] = {}
+        # the reference's keys exactly: a replay's fingerprint hashes them
         self.totals = {
             "points_in": 0, "bytes_in": 0.0, "symbols_out": 0,
             "frames_out": 0, "bytes_out": 0.0, "steps": 0,
             "opened": 0, "closed": 0, "evicted": 0,
-            "grows": 0, "shrinks": 0, "dtw_readings": 0, "dtw_seconds": 0.0,
+            "grows": 0, "shrinks": 0,
         }
+        # the DTW monitor's books (``dtw_seconds`` is wall time, so it stays
+        # out of ``totals``); ``report()`` merges them
+        self.monitor = {"dtw_readings": 0, "dtw_seconds": 0.0}
         self._table = self._blanks(self.capacity)
+        self.obs = as_obs(obs)
+        self._obs_on = self.obs.enabled
+        self._annotate = (annotate if self.obs.torch_annotate
+                          else _null_annotation)
+        self._stepped: set = set()  # (mode, capacity) pairs stepped so far
+        self._retraces = 0          # ... of them first stepped after init
+        if pretrace:
+            self._pretrace_ladder()
+        self._register_metrics()
+
+    def _register_metrics(self) -> None:
+        """Wire the flight recorder to this server (the reference's series
+        names and help strings).
+
+        Histograms are recorded in the serving loop (integer bucket adds);
+        everything already counted in ``self.totals`` is exposed as
+        scrape-time callback series instead -- zero added hot-path work.
+        """
+        m = self.obs.metrics
+        self._h_symbol_lat = m.histogram(
+            "symed_symbol_latency_seconds",
+            "per-symbol latency: window arrival to delta-frame emit "
+            "(the paper's 42 ms metric)", unit="ns")
+        self._h_tick = m.histogram(
+            "symed_ingest_tick_seconds",
+            "per-round ingest latency: pack + dispatch + harvest", unit="ns")
+        if not self._obs_on:
+            return
+        t = self.totals
+        for key, name, help_text in (
+            ("points_in", "symed_points_in_total", "raw points ingested"),
+            ("bytes_in", "symed_wire_in_bytes_total", "inbound wire bytes"),
+            ("symbols_out", "symed_symbols_out_total", "symbols emitted"),
+            ("frames_out", "symed_frames_out_total", "delta frames emitted"),
+            ("bytes_out", "symed_wire_out_bytes_total", "outbound wire bytes"),
+            ("steps", "symed_batched_steps_total", "donated table steps run"),
+            ("opened", "symed_sessions_opened_total", "sessions opened"),
+            ("closed", "symed_sessions_closed_total", "sessions closed"),
+            ("evicted", "symed_sessions_evicted_total", "sessions LRU-evicted"),
+            ("grows", "symed_table_grows_total", "autoscale ladder grows"),
+            ("shrinks", "symed_table_shrinks_total", "autoscale ladder shrinks"),
+        ):
+            m.counter_fn(name, help_text, (lambda k=key: float(t[k])))
+        m.gauge_fn("symed_active_sessions", "open sessions",
+                   lambda: float(len(self._sessions)))
+        m.gauge_fn("symed_table_capacity", "slot-table capacity",
+                   lambda: float(self.capacity))
+        m.counter_fn("symed_table_retraces_total",
+                     "batched-step compiles observed since server init",
+                     lambda: float(self._retraces))
+
+    def _pretrace_ladder(self) -> None:
+        """Step a blank table once raw in and once compressed in, with zero
+        valid points, at every capacity the table can take; the blank
+        tables are dropped, so no state is left behind."""
+        t0 = time.perf_counter_ns()
+        ladder = self._ladder if self.autoscale else [self.capacity]
+        kw = dict(digitize_every_k=self.digitize_every_k,
+                  use_kernel=self.use_kernel)
+        for cap in ladder:
+            win_f = torch.zeros((cap, self.window_cap), dtype=torch.float32,
+                                device=self.device)
+            win_i = torch.zeros((cap, self.window_cap), dtype=torch.int32,
+                                device=self.device)
+            cnt = torch.zeros((cap,), dtype=torch.int32, device=self.device)
+            hello = torch.zeros((cap,), dtype=torch.float32,
+                                device=self.device)
+            blanks, _ = symed_receive_masked_chunk_table(
+                win_f, cnt, self.cfg, self._blanks(cap), **kw)
+            symed_receive_masked_pieces_table(
+                win_f, win_i, cnt, hello, cnt, self.cfg, blanks, **kw)
+            self._stepped.update({("", cap), ("_pieces", cap)})
+        self.obs.tracer.add("stream.pretrace", t0, {"capacities": ladder})
+
+    def _note_step(self, mode: str) -> None:
+        """Count a (mode, capacity) pair's first step after construction,
+        and mark it on the timeline (a step ``pretrace`` did not cover)."""
+        if (mode, self.capacity) in self._stepped:
+            return
+        self._stepped.add((mode, self.capacity))
+        self._retraces += 1
+        self.obs.tracer.instant("stream.retrace", {"capacity": self.capacity})
 
     def _blanks(self, n: int):
         """``n`` fresh blank slots (keys are placeholders; ``open`` reseeds)."""
@@ -288,6 +411,7 @@ class StreamServer:
                     f"session table full ({self.max_sessions} slots); "
                     "close a session or construct with evict_idle=True")
             lru = min(self._sessions.values(), key=lambda s: s.last_active)
+            self.obs.tracer.instant("stream.evict", {"session": lru.stream_id})
             self.evicted[lru.stream_id] = self.close(lru.stream_id)
             self.totals["evicted"] += 1
             self.totals["closed"] -= 1  # eviction is not a clean close
@@ -352,27 +476,61 @@ class StreamServer:
         self._run_dtw_monitor()
         return _finalize_deltas(deltas)
 
-    def _run_rounds(self, sids, rounds, pack_round, dispatch, harvest):
+    def _run_rounds(self, sids, rounds, pack_round, dispatch, harvest,
+                    mode=""):
         """Run ``rounds`` table steps, double-buffered: round ``r`` is
         dispatched, round ``r+1`` is packed on the host, and only then are
         round ``r``'s outputs copied to the host, in one transfer.
         ``pack_round(r)`` gives the round's ``(active, host arrays)``,
         ``dispatch(*host arrays)`` its packed outputs, and ``harvest``
-        folds them into the per-stream deltas, which are returned."""
+        folds the copied outputs into the per-stream deltas (which are
+        returned) and gives the round's new symbols.  ``mode`` ("" raw in,
+        "_pieces" compressed in) suffixes the spans' names.
+
+        The round's arrival stamp (the host clock when its packing starts)
+        rides with it, so the latency histograms measure arrival to
+        delta-frame emit across the double buffer."""
         deltas = {sid: _new_delta() for sid in sids}
-        pend = None  # (active, packed outputs, clock) of the round in flight
+        obs_on = self._obs_on
+        tracer = self.obs.tracer
+        pend = None  # (active, packed outputs, clock, arrival) in flight
         for r in range(rounds):
+            t_arrive = time.perf_counter_ns() if obs_on else 0
             active, host = pack_round(r)
             flight = None
             if active:
-                flight = (active, dispatch(*host), self._clock)
+                if obs_on:
+                    tracer.add("stream.pack" + mode, t_arrive,
+                               {"round": r, "sessions": len(active)})
+                self._note_step(mode)
+                t_disp = time.perf_counter_ns() if obs_on else 0
+                with self._annotate("symed.table_step" + mode):
+                    packed = dispatch(*host)
+                if obs_on:
+                    tracer.add("stream.dispatch" + mode, t_disp)
+                flight = (active, packed, self._clock, t_arrive)
             # harvest the previous round only after this one is in flight
             if pend is not None:
-                harvest(*pend, deltas)
+                self._harvest_flight(pend, harvest, deltas, mode)
             pend = flight
         if pend is not None:
-            harvest(*pend, deltas)
+            self._harvest_flight(pend, harvest, deltas, mode)
         return deltas
+
+    def _harvest_flight(self, flight, harvest, deltas, mode) -> None:
+        """Copy one round's outputs to the host and fold them in; the
+        latency is taken right after the copy."""
+        active, packed, clock, t_arrive = flight
+        obs_on = self._obs_on
+        t_h = time.perf_counter_ns() if obs_on else 0
+        outs = self._unpack(packed)
+        lat = (time.perf_counter_ns() - t_arrive) if obs_on else 0
+        n_new = harvest(active, outs, clock, deltas)
+        if obs_on:
+            self._h_symbol_lat.observe_n(lat, n_new)
+            self._h_tick.observe(lat)
+            self.obs.tracer.add("stream.harvest" + mode, t_h,
+                                {"sessions": len(active)})
 
     def _dispatch(self, padded: np.ndarray, n_valid: np.ndarray):
         """Run one raw-in table step; returns its outputs packed for one
@@ -426,12 +584,15 @@ class StreamServer:
         return (host[:, :n_max], host[:, n_max: 2 * n_max].view(np.float32),
                 *(host[:, 2 * n_max + i] for i in range(3)))
 
-    def _harvest_round(self, active, packed, clock, deltas) -> None:
-        """Fold one raw-in round's outputs into the books."""
-        labels, endpoints, n_new, emitted, t_seen = self._unpack(packed)
+    def _harvest_round(self, active, outs, clock, deltas) -> int:
+        """Fold one raw-in round's outputs into the books; returns its new
+        symbols."""
+        labels, endpoints, n_new, emitted, t_seen = outs
+        total = 0
         for sid, part in active:
             sess = self._sessions[sid]
             n = int(n_new[sess.slot])
+            total += n
             self._account_delta(sess, deltas[sid], labels[sess.slot],
                                 endpoints[sess.slot], n,
                                 bool(emitted[sess.slot]))
@@ -444,6 +605,7 @@ class StreamServer:
                 sess.raw.append(part.copy())
                 if sess.chunks % self.dtw_every == 0:
                     self._dtw_due.add(sid)
+        return total
 
     def ingest_pieces_many(self, arrivals: Dict[str, dict]) -> Dict[str, dict]:
         """Compressed-in counterpart of ``ingest_many``.
@@ -501,17 +663,19 @@ class StreamServer:
                       for p in pends.values()), default=0)
         deltas = self._run_rounds(pends, rounds, pack_round,
                                   self._dispatch_pieces,
-                                  self._harvest_pieces_round)
+                                  self._harvest_pieces_round, "_pieces")
         return _finalize_deltas(deltas)
 
-    def _harvest_pieces_round(self, active, packed, clock, deltas) -> None:
+    def _harvest_pieces_round(self, active, outs, clock, deltas) -> int:
         """Fold one compressed-in round's outputs into the books: a round
         counts as a window where it carried pieces, and ``points_in``
-        follows the senders' clocks."""
-        labels, endpoints, n_new, emitted, t_seen = self._unpack(packed)
+        follows the senders' clocks.  Returns the round's new symbols."""
+        labels, endpoints, n_new, emitted, t_seen = outs
+        total = 0
         for sid, n_in in active:
             sess = self._sessions[sid]
             n = int(n_new[sess.slot])
+            total += n
             self._account_delta(sess, deltas[sid], labels[sess.slot],
                                 endpoints[sess.slot], n,
                                 bool(emitted[sess.slot]))
@@ -521,6 +685,7 @@ class StreamServer:
             self.totals["points_in"] += max(now_seen - sess.t_seen, 0)
             sess.t_seen = now_seen
             sess.last_active = clock
+        return total
 
     def close(self, stream_id: str) -> dict:
         """Flush the tail, emit the closing delta frame, free the slot.
@@ -572,13 +737,16 @@ class StreamServer:
             "dtw": sess.dtw,
         }
 
-    def report(self, wall_seconds: float) -> Dict[str, float]:
-        """Host-side service summary; every value is a float."""
+    def report(self, wall_seconds: float) -> Dict[str, object]:
+        """Host-side service summary: the totals, the DTW monitor's books
+        and rates, all floats; with the recorder on, ``"obs"`` holds its
+        snapshot (counters, gauges, histogram digests with p50/p99/p999)."""
         t = {k: float(v) for k, v in self.totals.items()}
         dt = max(wall_seconds, 1e-9)
         raw_bytes = 4.0 * t["points_in"]
-        return {
+        rep: Dict[str, object] = {
             **t,
+            **{k: float(v) for k, v in self.monitor.items()},
             "active": float(self.active_sessions),
             "capacity": float(self.capacity),
             "wall_seconds": wall_seconds,
@@ -590,6 +758,9 @@ class StreamServer:
             "wire_in_ratio": t["bytes_in"] / max(raw_bytes, 1.0),
             "wire_out_ratio": t["bytes_out"] / max(raw_bytes, 1.0),
         }
+        if self._obs_on:
+            rep["obs"] = self.obs.snapshot()
+        return rep
 
     # ------------------------------------------------------------- internals
 
@@ -620,6 +791,7 @@ class StreamServer:
         self._free.extend(range(self.capacity, new_cap))
         self.capacity = new_cap
         self.totals["grows"] += 1
+        self.obs.tracer.instant("stream.grow", {"capacity": new_cap})
 
     def _maybe_shrink(self) -> None:
         """Walk down the ladder once occupancy has stayed at or below a
@@ -650,6 +822,7 @@ class StreamServer:
             self._free = list(range(len(live), target))
             self.capacity = target
             self.totals["shrinks"] += 1
+            self.obs.tracer.instant("stream.shrink", {"capacity": target})
 
     def _run_dtw_monitor(self) -> None:
         """Online reconstruction error for every session whose DTW cadence
@@ -666,7 +839,7 @@ class StreamServer:
         self._dtw_due.clear()
         if not due:
             return
-        t_start = time.perf_counter()
+        t_start = time.perf_counter_ns()
         idx = torch.tensor([s.slot for s in due], dtype=torch.long,
                            device=self.device)
         t = self._table
@@ -689,30 +862,62 @@ class StreamServer:
                                   band=self.dtw_band)
         for sess, val in zip(due, readings.cpu().tolist()):
             sess.dtw = val
-        self.totals["dtw_readings"] += len(due)
-        self.totals["dtw_seconds"] += time.perf_counter() - t_start
+        self.monitor["dtw_readings"] += len(due)
+        self.monitor["dtw_seconds"] += 1e-9 * (time.perf_counter_ns() - t_start)
+        self.obs.tracer.add("stream.dtw_monitor", t_start,
+                            {"sessions": len(due)})
 
 
 # ----------------------------------------------------------------- CLI
 
 
-def _round_robin(server: StreamServer, data: np.ndarray, window: int):
-    """Open every session, then each tick every open session sends its next
-    window; close them all at the end.  A session evicted to make room
-    sends nothing more (its output is parked in ``server.evicted``)."""
-    sids = [f"s{s}" for s in range(data.shape[0])]
-    for sid in sids:
-        server.open(sid)
-    for w in range(0, data.shape[1], window):
-        server.ingest_many({sid: data[s, w: w + window]
-                            for s, sid in enumerate(sids) if sid in server})
-    return {sid: server.close(sid) for sid in server.session_ids()}
+def validate_cli_args(ap: argparse.ArgumentParser, args) -> None:
+    """Fail fast (exit 2) before any torch work, with the reference's checks
+    and messages."""
+    from repro_torch.launch.cli import validate_shared_args
+
+    validate_shared_args(ap, args)
+    if args.dtw_every < 0:
+        ap.error(f"--dtw-every must be >= 0, got {args.dtw_every}")
+    if args.sessions > args.max_slots and not args.evict \
+            and args.workload is None:
+        ap.error(f"--sessions {args.sessions} exceeds --max-slots "
+                 f"{args.max_slots}; pass --evict to allow LRU eviction")
+    if args.workload is not None and args.arrival_pattern is not None:
+        ap.error("--workload and --arrival-pattern are mutually exclusive")
+
+
+def _build_workload(args):
+    """Resolve the CLI's arrival flags into a ``repro_torch.workload`` trace.
+
+    Precedence: ``--workload FILE.jsonl`` (recorded trace) >
+    ``--workload SCENARIO`` (synthesized with the CLI's shape knobs) >
+    ``--arrival-pattern`` (deprecated shim) > silent ``roundrobin``.
+    """
+    from repro_torch.workload import SCENARIOS, Trace, Workload, scenario_seed
+
+    if args.workload is not None and args.workload not in SCENARIOS:
+        return Trace.load(args.workload)  # recorded workload_trace/v1 jsonl
+    if args.workload is not None:
+        wl = Workload(args.workload,
+                      seed=scenario_seed(args.workload, args.seed),
+                      sessions=args.sessions, length=args.length,
+                      window=args.window)
+        return wl.trace()
+    pattern = args.arrival_pattern
+    wl = Workload.from_pattern(
+        pattern if pattern is not None else "roundrobin",
+        sessions=args.sessions, length=args.length, window=args.window,
+        seed=args.seed, _warn=pattern is not None)
+    return wl.trace()
 
 
 def main(argv=None):
-    from repro_torch.data.synthetic import make_fleet
     from repro_torch.launch.cli import (
-        add_slot_table_args, add_symed_args, validate_shared_args)
+        add_metrics_args, add_slot_table_args, add_symed_args)
+    from repro_torch.obs import Observability
+    from repro_torch.obs.export import start_exporter
+    from repro_torch.workload import replay_trace
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--sessions", type=int, default=6,
@@ -720,41 +925,49 @@ def main(argv=None):
     ap.add_argument("--length", type=int, default=384)
     ap.add_argument("--window", type=int, default=48,
                     help="arrival window cap (ragged arrivals are padded)")
+    ap.add_argument("--workload", default=None, metavar="NAME|FILE",
+                    help="arrival trace: a repro_torch.workload scenario "
+                         "name or a recorded workload_trace/v1 jsonl "
+                         "(default: roundrobin)")
+    ap.add_argument("--arrival-pattern", default=None,
+                    choices=("roundrobin", "random", "bursty"),
+                    help="(deprecated: use --workload) legacy arrival shim")
     ap.add_argument("--dtw-every", type=int, default=0,
                     help="online DTW monitor cadence in windows (0: off)")
+    ap.add_argument("--verify", action="store_true",
+                    help="check delta concatenation against symed_encode "
+                         "(endpoints bitwise; every symbol on the CPU, 99%% "
+                         "on cuda)")
     add_slot_table_args(ap)
     add_symed_args(ap)
+    add_metrics_args(ap)
     ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
     args = ap.parse_args(argv)
-    # the reference's checks and messages, before any torch work
-    validate_shared_args(ap, args)
-    if args.dtw_every < 0:
-        ap.error(f"--dtw-every must be >= 0, got {args.dtw_every}")
-    if args.sessions > args.max_slots and not args.evict:
-        ap.error(f"--sessions {args.sessions} exceeds --max-slots "
-                 f"{args.max_slots}; pass --evict to allow LRU eviction")
+    validate_cli_args(ap, args)
 
+    trace = _build_workload(args)
+    window_cap = trace.window  # a recorded trace carries its own shape
     cfg = SymEDConfig(tol=args.tol, alpha=args.alpha, n_max=256, k_max=32,
                       len_max=256)
-    server = StreamServer(cfg, max_sessions=args.max_slots,
-                          window_cap=args.window,
-                          digitize_every_k=args.digitize_every,
-                          evict_idle=args.evict, dtw_every=args.dtw_every,
-                          autoscale=args.autoscale,
-                          min_slots=args.min_slots,
-                          shrink_patience=args.shrink_patience,
-                          seed=args.seed, device=args.device)
-    data = make_fleet(args.sessions, args.length, seed=args.seed)
-    t0 = time.perf_counter()
-    closed = _round_robin(server, data, args.window)
-    if server.device.type == "cuda":
-        torch.cuda.synchronize(server.device)
-    rep = server.report(time.perf_counter() - t0)
+    obs = Observability(trace_capacity=65536)
+    server = StreamServer(
+        cfg, max_sessions=args.max_slots, window_cap=window_cap,
+        digitize_every_k=args.digitize_every, dtw_every=args.dtw_every,
+        evict_idle=args.evict, autoscale=args.autoscale,
+        min_slots=args.min_slots, shrink_patience=args.shrink_patience,
+        seed=args.seed, pretrace=args.pretrace, obs=obs, device=args.device)
+    exporter = start_exporter(obs, args.metrics_port)
+    if exporter is not None:
+        print(f"metrics exporter        : {exporter.url}/metrics")
+
+    res = replay_trace(trace, cfg=cfg, server=server, verify=args.verify)
+
+    rep = server.report(res.wall_seconds)
     print(f"device                  : {server.device} "
           f"(k-means kernel {'on' if server.use_kernel else 'off'})")
     print(f"slot table              : {args.max_slots} slots"
           f"{' (autoscaled)' if args.autoscale else ''}, "
-          f"window cap {args.window}, round-robin arrivals")
+          f"window cap {window_cap}, workload {trace.name}")
     print(f"sessions                : {int(rep['opened'])} opened, "
           f"{int(rep['closed'])} closed, {int(rep['evicted'])} evicted")
     # stable machine-readable summary: the same keys as the JAX CLI's line
@@ -771,12 +984,38 @@ def main(argv=None):
     print(f"symbols out             : {int(rep['symbols_out'])} in "
           f"{int(rep['frames_out'])} delta frames "
           f"({int(rep['bytes_out'])} wire-out bytes)")
+    print(f"symbol latency          : {rep['ms_per_symbol']:.3f} ms/symbol "
+          f"(paper: 42ms single-CPU)")
     if args.dtw_every:
-        vals = [r["dtw"] for r in (*closed.values(), *server.evicted.values())
-                if r["dtw"] is not None]
+        vals = [s["dtw"] for s in res.sessions.values()
+                if s["dtw"] is not None]
         if vals:
             print(f"online DTW monitor      : mean {np.mean(vals):.3f} "
                   f"over {len(vals)} sessions")
+    if args.verify:
+        # replay_trace(verify=True) raised on any session that failed
+        # transport.check_deltas
+        print(f"delta equivalence       : OK ({res.verified} sessions)")
+
+    # flight-recorder summary (stable key=value line, like stream_summary)
+    snap = obs.snapshot()
+    lat = snap["histograms"].get("symed_symbol_latency_seconds", {})
+    print("obs_summary "
+          f"symbol_p50_ms={1e3 * lat.get('p50', 0.0):.3f} "
+          f"symbol_p99_ms={1e3 * lat.get('p99', 0.0):.3f} "
+          f"symbol_p999_ms={1e3 * lat.get('p999', 0.0):.3f} "
+          f"symbols={int(lat.get('count', 0))} "
+          f"spans={int(snap['spans_recorded'])}")
+    if args.trace_out:
+        obs.tracer.write(args.trace_out)
+        print(f"trace written           : {args.trace_out} "
+              f"({obs.tracer.recorded} events, load at ui.perfetto.dev)")
+    if exporter is not None:
+        if args.metrics_linger:
+            print(f"metrics exporter        : lingering "
+                  f"{args.metrics_linger:.0f}s for scrapes", flush=True)
+            time.sleep(args.metrics_linger)
+        exporter.close()
     return rep
 
 

@@ -27,19 +27,23 @@ Wire format (all integers big-endian), byte for byte the reference's:
             closing DELTA payload                            <- receiver
     ERROR   utf-8 message                                    <- receiver
 
-The reference's metrics hooks (its ``transport.*`` spans and counters) are
-not here: they come with the port of ``repro.obs``.
+The transport records into the wrapped ``StreamServer``'s flight recorder
+(``repro_torch.obs``), with the reference's series: frames in by type,
+socket bytes in and out, sessions closed, decode and route latency, and
+the ``transport.decode`` / ``transport.route`` spans.  The serve thread
+records with host-side integer stores and host clock reads, no locks.
 
 Threads and the card: the thread that runs ``TransportServer.serve`` issues
 every operation on the slot table; a ``SenderClient`` in the same process
 issues only its compressor's.  Both use the default CUDA stream.
 
 CLI (``--serve`` and ``--send`` are the two halves as separate processes;
-with neither, an in-process loopback demo):
+with neither, an in-process loopback demo; ``--serve`` takes the
+recorder's ``--metrics-port``, ``--metrics-linger`` and ``--trace-out``):
 
     PYTHONPATH=src python -m repro_torch.launch.transport --serve \
         --port 7543 --autoscale --min-slots 2 --max-slots 16 \
-        --expect-sessions 8 --device cpu
+        --expect-sessions 8 --pretrace --trace-out serve.json --device cpu
     PYTHONPATH=src python -m repro_torch.launch.transport --send \
         --port 7543 --streams 8 --length 192 --mode pieces --verify \
         --device cpu
@@ -416,6 +420,60 @@ class TransportServer:
         self.frame_bytes = 0.0      # total socket bytes in (incl. framing)
         self.payload_bytes = {MODE_RAW: 0.0, MODE_PIECES: 0.0}
         self.raw_equiv_bytes = {MODE_RAW: 0.0, MODE_PIECES: 0.0}
+        self._register_metrics()
+
+    def _register_metrics(self) -> None:
+        """Record into the wrapped ``StreamServer``'s flight recorder, so one
+        scrape covers the socket tier and the slot table together.
+
+        Socket totals already tracked on ``self`` become scrape-time callback
+        series (zero loop cost); per-frame/decode signals are live counters
+        and histograms recorded in ``_tick``/``_process``.
+        """
+        from repro_torch.obs import disabled
+
+        self._obs = getattr(self.server, "obs", None) or disabled()
+        self._obs_on = self._obs.enabled
+        m = self._obs.metrics
+        self._h_decode = m.histogram(
+            "transport_decode_seconds",
+            "per-recv frame decode latency", unit="ns")
+        self._h_route = m.histogram(
+            "transport_route_seconds",
+            "per-batch frame handling: stage + ingest + reply", unit="ns")
+        self._m_frames = {
+            ftype: m.counter("transport_frames_in_total", "frames received",
+                             labels={"type": name})
+            for ftype, name in ((OPEN, "open"), (DATA, "data"),
+                                (CLOSE, "close"))
+        }
+        self._m_frames_other = m.counter(
+            "transport_frames_in_total", "frames received",
+            labels={"type": "other"})
+        self._m_tx = m.counter("transport_tx_bytes_total",
+                               "bytes written back to senders")
+        self._m_proto_errors = m.counter(
+            "transport_protocol_errors_total",
+            "malformed frames / payloads rejected")
+        self._m_drops = m.counter(
+            "transport_conn_drops_total",
+            "connections dropped (EOF, errors, protocol violations)")
+        if not self._obs_on:
+            return
+        m.counter_fn("transport_rx_bytes_total",
+                     "socket bytes received (incl. framing)",
+                     lambda: float(self.frame_bytes))
+        m.counter_fn("transport_payload_bytes_total", "payload bytes by mode",
+                     lambda: float(self.payload_bytes[MODE_RAW]),
+                     labels={"mode": "raw"})
+        m.counter_fn("transport_payload_bytes_total", "payload bytes by mode",
+                     lambda: float(self.payload_bytes[MODE_PIECES]),
+                     labels={"mode": "pieces"})
+        m.counter_fn("transport_sessions_closed_total",
+                     "sessions closed over the wire",
+                     lambda: float(self.closed_sessions))
+        m.gauge_fn("transport_open_connections", "live sender sockets",
+                   lambda: float(len(self._conns)))
 
     def serve(self, expect_sessions: Optional[int] = None,
               stop=None, poll: float = 0.05) -> None:
@@ -458,15 +516,24 @@ class TransportServer:
                 self._drop_conn(sock_)
                 continue
             self.frame_bytes += len(data)
+            t_dec = time.perf_counter_ns() if self._obs_on else 0
             try:
                 frames = self._conns[sock_].feed(data)
             except ValueError as e:
+                self._m_proto_errors.inc()
                 try:
                     sock_.sendall(encode_error("", f"protocol error: {e}"))
                 except OSError:
                     pass
                 self._drop_conn(sock_)
                 continue
+            if self._obs_on:
+                self._h_decode.observe(time.perf_counter_ns() - t_dec)
+                self._obs.tracer.add(
+                    "transport.decode", t_dec,
+                    {"bytes": len(data), "frames": len(frames)})
+                for f in frames:
+                    (self._m_frames.get(f.type) or self._m_frames_other).inc()
             staged.extend((sock_, f) for f in frames)
         if staged:
             self._process(staged)
@@ -474,7 +541,8 @@ class TransportServer:
     def _drop_conn(self, conn) -> None:
         """A vanished sender abandons its sessions: close them server-side."""
         conn.close()
-        self._conns.pop(conn, None)
+        if self._conns.pop(conn, None) is not None:
+            self._m_drops.inc()
         for sid in [s for s, w in self._wire.items() if w.conn is conn]:
             del self._wire[sid]
             if sid in self.server:
@@ -484,10 +552,12 @@ class TransportServer:
     def _reply(self, conn, data: bytes) -> None:
         try:
             conn.sendall(data)
+            self._m_tx.inc(len(data))
         except OSError:
             self._drop_conn(conn)
 
     def _process(self, staged) -> None:
+        t_route = time.perf_counter_ns() if self._obs_on else 0
         raw_batch: Dict[str, list] = {}
         pieces_batch: Dict[str, dict] = {}
         closes: List[str] = []
@@ -499,10 +569,15 @@ class TransportServer:
                 # a well-framed body with garbage inside must not take the
                 # serve loop (and every other tenant) down -- the offending
                 # connection is dropped, its sessions closed server-side
+                self._m_proto_errors.inc()
                 self._reply(conn, encode_error(
                     frame.sid, f"malformed frame payload: {e}"))
                 self._drop_conn(conn)
         self._flush(raw_batch, pieces_batch, closes)
+        if self._obs_on:
+            self._h_route.observe(time.perf_counter_ns() - t_route)
+            self._obs.tracer.add("transport.route", t_route,
+                                 {"frames": len(staged)})
 
     def _handle_frame(self, conn, frame: Frame, raw_batch, pieces_batch,
                       closes) -> None:
@@ -653,14 +728,19 @@ def _cfg(args):
 
 def _serve_main(args) -> int:
     from repro_torch.launch.stream import StreamServer
+    from repro_torch.obs.export import start_exporter
 
     server = StreamServer(
         _cfg(args), max_sessions=args.max_slots, window_cap=args.window,
         digitize_every_k=args.digitize_every, evict_idle=args.evict,
         autoscale=args.autoscale, min_slots=args.min_slots,
-        shrink_patience=args.shrink_patience, seed=args.seed,
-        device=args.device)
+        shrink_patience=args.shrink_patience, pretrace=args.pretrace,
+        seed=args.seed, device=args.device)
     transport = TransportServer(server, host=args.host, port=args.port)
+    exporter = start_exporter(server.obs, args.metrics_port)
+    if exporter is not None:
+        print(f"metrics exporter        : {exporter.url}/metrics",
+              flush=True)
     print(f"listening on {transport.host}:{transport.port} "
           f"(device={server.device} slots={args.max_slots}"
           f"{' autoscale' if args.autoscale else ''})", flush=True)
@@ -668,6 +748,15 @@ def _serve_main(args) -> int:
     transport.serve(expect_sessions=args.expect_sessions)
     rep = server.report(time.perf_counter() - t0)
     summ = transport.summary()
+    if args.trace_out:
+        server.obs.tracer.write(args.trace_out)
+        print(f"trace written           : {args.trace_out}")
+    if exporter is not None:
+        if args.metrics_linger:
+            print(f"metrics exporter        : lingering "
+                  f"{args.metrics_linger:.0f}s for scrapes", flush=True)
+            time.sleep(args.metrics_linger)
+        exporter.close()
     print(f"sessions                : {int(rep['opened'])} opened, "
           f"{int(rep['closed'])} closed, {int(rep['evicted'])} evicted")
     print(f"wire in                 : {int(rep['wire_in_bytes'])} payload "
@@ -799,7 +888,8 @@ def _demo_main(args) -> int:
 
 def main(argv=None) -> int:
     from repro_torch.launch.cli import (
-        add_slot_table_args, add_symed_args, validate_shared_args)
+        add_metrics_args, add_slot_table_args, add_symed_args,
+        validate_shared_args)
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     role = ap.add_mutually_exclusive_group()
@@ -830,6 +920,7 @@ def main(argv=None) -> int:
                     help="server: exit after this many sessions closed")
     add_slot_table_args(ap, max_slots=8)
     add_symed_args(ap)
+    add_metrics_args(ap)
     ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"),
                     help="where the server's table and the sender's "
                          "compressor run")

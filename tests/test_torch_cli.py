@@ -3,8 +3,12 @@
 2 and the same message, from the shared surface ``repro_torch.launch.cli``
 before any torch work.  The messages are pinned here letter for letter;
 where JAX is installed each is also held against the reference's parser,
-run in this process."""
+run in this process.  The stream CLI's trace-driven runs print the
+reference's ``stream_summary`` line and an ``obs_summary`` line with the
+reference's keys; the transport's recorder flags reach its server."""
+import json
 import sys
+import warnings
 
 import pytest
 
@@ -38,6 +42,16 @@ CASES = {
                     "--min-slots 0 must be in [1, --max-slots 4]"),
     "min-slots over max-slots": (["--min-slots", "8"],
                                  "--min-slots 8 must be in [1, --max-slots 4]"),
+    "sessions over max-slots": (["--sessions", "5"],
+                                "--sessions 5 exceeds --max-slots 4; pass "
+                                "--evict to allow LRU eviction"),
+    "workload and arrival-pattern": (
+        ["--workload", "bursty", "--arrival-pattern", "random"],
+        "--workload and --arrival-pattern are mutually exclusive"),
+    "metrics-port 70000": (["--metrics-port", "70000"],
+                           "--metrics-port must be in [0, 65535], got 70000"),
+    "metrics-linger -1": (["--metrics-linger", "-1"],
+                          "--metrics-linger must be >= 0, got -1.0"),
 }
 
 # the transport CLI's (its --max-slots defaults to 8, its --length to 256)
@@ -60,6 +74,10 @@ TRANSPORT_CASES = {
     "shrink-patience 0": (["--shrink-patience", "0"],
                           "--shrink-patience must be >= 1, got 0"),
     "max-slots 0": (["--max-slots", "0"], "--max-slots must be >= 1, got 0"),
+    "metrics-port -1": (["--serve", "--metrics-port", "-1"],
+                        "--metrics-port must be in [0, 65535], got -1"),
+    "metrics-linger -2": (["--metrics-linger", "-2"],
+                          "--metrics-linger must be >= 0, got -2.0"),
 }
 
 
@@ -103,14 +121,145 @@ def test_transport_same_message_as_the_reference(case, capsys, monkeypatch):
     assert got == _error(reference_transport_main, capsys)
 
 
-@pytest.mark.parametrize("flags", [
-    ["--devices", "2"], ["--metrics-port", "9100"], ["--trace-out", "t.json"],
-    ["--metrics-linger", "1"], ["--pretrace"]])
+@pytest.mark.parametrize("flags", [["--devices", "2"]])
 def test_transport_rejects_flags_of_unported_parts(flags, capsys):
-    """Flags of the sharded table, the flight recorder and the CUDA-graph
-    ladder are not accepted quietly."""
+    """Flags of the sharded table are not accepted quietly."""
     message = _error(lambda: port_transport_main(flags), capsys)
     assert message == f"unrecognized arguments: {' '.join(flags)}"
+
+
+@pytest.mark.parametrize("cli", ["stream", "workload"])
+def test_devices_unrecognized_until_the_fleet_is_ported(cli, capsys):
+    from repro_torch.workload.__main__ import main as workload_main
+
+    run = {"stream": port_main, "workload": workload_main}[cli]
+    message = _error(lambda: run(["--devices", "2"]), capsys)
+    assert message == "unrecognized arguments: --devices 2"
+
+
+def _serve(flags, tmp_path, capsys):
+    """``--serve`` on the CPU with no session to wait for: returns its
+    stdout and the trace it wrote."""
+    trace = tmp_path / "serve.json"
+    assert port_transport_main(
+        ["--serve", "--device", "cpu", "--expect-sessions", "0",
+         "--max-slots", "4", "--autoscale", "--min-slots", "2",
+         "--trace-out", str(trace), *flags]) == 0
+    return capsys.readouterr().out, json.loads(trace.read_text())
+
+
+def test_transport_trace_out_reaches_the_server(tmp_path, capsys):
+    out, doc = _serve([], tmp_path, capsys)
+    assert f"trace written           : {tmp_path / 'serve.json'}" in out
+    assert set(doc) == {"traceEvents", "displayTimeUnit", "otherData"}
+    assert "stream.pretrace" not in {ev["name"] for ev in doc["traceEvents"]}
+
+
+def test_transport_pretrace_reaches_the_server(tmp_path, capsys):
+    """Every rung of the 2..4 ladder is stepped at init."""
+    _, doc = _serve(["--pretrace"], tmp_path, capsys)
+    spans = [ev for ev in doc["traceEvents"] if ev["name"] == "stream.pretrace"]
+    assert len(spans) == 1 and spans[0]["args"]["capacities"] == [2, 4]
+
+
+def test_transport_metrics_port_reaches_the_server(tmp_path, capsys):
+    out, _ = _serve(["--metrics-port", "0"], tmp_path, capsys)
+    assert "metrics exporter        : http://127.0.0.1:" in out
+    assert "lingering" not in out
+
+
+def test_transport_metrics_linger_reaches_the_server(tmp_path, capsys):
+    out, _ = _serve(["--metrics-port", "0", "--metrics-linger", "0.05"],
+                    tmp_path, capsys)
+    assert "metrics exporter        : lingering 0s for scrapes" in out
+
+
+# the stream CLI's trace-driven runs, on a small fleet: (flags, deprecated)
+RUNS = {
+    "workload bursty, verify": (["--workload", "bursty", "--verify"], False),
+    "workload diurnal, evict": (["--workload", "diurnal", "--evict",
+                                 "--max-slots", "2"], False),
+    "arrival-pattern random, pretrace, trace-out": (
+        ["--arrival-pattern", "random", "--pretrace", "--autoscale",
+         "--min-slots", "1"], True),
+    "recorded jsonl": (None, False),
+}
+SMALL = ["--sessions", "3", "--length", "96", "--window", "48"]
+
+
+def _lines(out, prefix):
+    return [line for line in out.splitlines() if line.startswith(prefix)]
+
+
+def _run_port(flags, deprecated, capsys):
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        rep = port_main(flags)
+    warned = [w for w in caught if issubclass(w.category, DeprecationWarning)
+              and "--arrival-pattern" in str(w.message)]
+    assert bool(warned) == deprecated
+    return rep, capsys.readouterr().out
+
+
+def _flags(case, tmp_path):
+    flags, _ = RUNS[case]
+    if flags is None:  # a trace recorded by the port, replayed by both CLIs
+        from repro_torch.workload import Workload
+
+        path = tmp_path / "trace.jsonl"
+        Workload("random", seed=3, sessions=3, length=96,
+                 window=48).trace().save(str(path))
+        flags = ["--workload", str(path)]
+    return SMALL + flags
+
+
+@pytest.mark.parametrize("case", sorted(RUNS))
+def test_trace_driven_run(case, tmp_path, capsys):
+    flags = _flags(case, tmp_path) + ["--trace-out", str(tmp_path / "t.json")]
+    rep, out = _run_port(flags + ["--device", "cpu"], RUNS[case][1], capsys)
+    assert int(rep["opened"]) == 3 and int(rep["points_in"]) > 0
+    (obs,) = _lines(out, "obs_summary ")
+    keys = [kv.split("=")[0] for kv in obs.split()[1:]]
+    assert keys == ["symbol_p50_ms", "symbol_p99_ms", "symbol_p999_ms",
+                    "symbols", "spans"]
+    doc = json.loads((tmp_path / "t.json").read_text())
+    names = {ev["name"] for ev in doc["traceEvents"]}
+    assert {"stream.dispatch", "stream.harvest"} <= names
+    if "--verify" in flags:
+        assert _lines(out, "delta equivalence       : OK (3 sessions)")
+    if "--pretrace" in flags:
+        assert "stream.pretrace" in names
+        assert "stream.retrace" not in names
+
+
+@pytest.mark.skipif(reference_main is None, reason="needs the JAX reference")
+@pytest.mark.parametrize("case", sorted(RUNS))
+def test_trace_driven_run_same_summary_as_the_reference(
+        case, tmp_path, capsys, monkeypatch):
+    flags = _flags(case, tmp_path)
+    _, out = _run_port(flags + ["--device", "cpu"], RUNS[case][1], capsys)
+    monkeypatch.setattr(sys, "argv", ["stream", *flags])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        reference_main()
+    ref = capsys.readouterr().out
+    assert _lines(out, "stream_summary ") == _lines(ref, "stream_summary ")
+    (mine,), (theirs,) = _lines(out, "obs_summary "), _lines(ref, "obs_summary ")
+    keys = [[kv.split("=")[0] for kv in line.split()[1:]]
+            for line in (mine, theirs)]
+    assert keys[0] == keys[1]
+    # the recorders saw the same symbols (their span counts differ by the
+    # ``stream.retrace`` instants, which in the reference follow the
+    # process's jit cache, and by the port's ``stream.pretrace``)
+    assert mine.split("symbols=")[1].split()[0] \
+        == theirs.split("symbols=")[1].split()[0]
+
+
+def test_sessions_over_max_slots_allowed_under_workload(capsys):
+    rep = port_main(SMALL + ["--sessions", "5", "--max-slots", "2",
+                             "--workload", "roundrobin", "--evict",
+                             "--device", "cpu"])
+    assert int(rep["opened"]) == 5 and int(rep["evicted"]) > 0
 
 
 def test_min_slots_reaches_the_server(capsys):

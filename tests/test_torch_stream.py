@@ -384,21 +384,39 @@ class TestPortContract:
         line = [l for l in out.splitlines() if l.startswith("stream_summary ")]
         assert line and "opened=3" in line[0] and "evicted=1" in line[0]
         assert rep["points_in"] > 0
-        assert "online DTW monitor      : mean " in out
-        assert out.rstrip().endswith("over 2 sessions")  # s0 was evicted unfed
+        dtw = [l for l in out.splitlines()
+               if l.startswith("online DTW monitor      : mean ")]
+        assert dtw and dtw[0].endswith("over 2 sessions")  # s0 evicted unfed
+        assert out.rstrip().splitlines()[-1].startswith("obs_summary ")
         with pytest.raises(SystemExit):
             main(["--dtw-every", "-1", "--device", "cpu"])
 
 
+def test_totals_have_the_reference_keys():
+    """A replay's fingerprint hashes every key of ``totals``: the port's
+    key set is the reference's, and the DTW monitor's books (one of them
+    wall time) live apart, merged by ``report()``."""
+    ref, port = _pair(max_sessions=2, dtw_every=1)
+    assert set(port.totals) == set(ref.totals)
+    port.open("a")
+    port.ingest("a", np.sin(np.arange(40, dtype=np.float32) / 3))
+    rep = port.report(1.0)
+    assert port.monitor["dtw_readings"] == rep["dtw_readings"] == 1
+    assert rep["dtw_seconds"] > 0.0
+    assert set(port.totals) == set(ref.totals)
+
+
 def test_port_imports_no_jax():
-    """``import repro_torch``, ``repro_torch.core`` and the transport, one
-    CPU service round with the DTW monitor on and one compressed-in round
-    leave jax and every module of the JAX package out of
-    ``sys.modules``."""
+    """``import repro_torch``, ``repro_torch.core``, the transport, the
+    recorder and the workload harness, one CPU service round with the DTW
+    monitor on, one compressed-in round and one replay of a scenario leave
+    jax and every module of the JAX package out of ``sys.modules``."""
     code = (
         "import sys, numpy as np\n"
         "import repro_torch, repro_torch.core\n"
         "import repro_torch.launch.transport\n"
+        "import repro_torch.obs, repro_torch.obs.export\n"
+        "import repro_torch.workload, repro_torch.workload.__main__\n"
         "from repro_torch.launch.stream import StreamServer\n"
         "from repro_torch.core.symed import SymEDConfig\n"
         "cfg = SymEDConfig(n_max=32, k_max=4, len_max=16, lloyd_iters=2)\n"
@@ -413,6 +431,11 @@ def test_port_imports_no_jax():
         " 'steps': [4, 9, 15], 't_seen': 16, 't0': 0.0}})\n"
         "assert d['p']['n_new'] == 3, d\n"
         "srv.close('p')\n"
+        "from repro_torch.workload import Workload, replay_trace\n"
+        "wl = Workload('mixed_fleet', sessions=2, length=32, window=16)\n"
+        "res = replay_trace(wl.trace(), cfg=cfg, server_kw=wl.server_kw(),"
+        " device='cpu', verify=True)\n"
+        "assert res.verified == 2 and res.latency['count'] > 0, res\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print('BAD', bad)\n"
