@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of SymED on one GPU and check it.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``.  Eight phases,
+Run from the root of a checkout: ``python3 chip_smoke.py``.  Nine phases,
 each raising on failure:
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
@@ -74,10 +74,37 @@ each raising on failure:
    ``report()`` and the transport's counts, ``/trace`` as Chrome trace
    JSON, the delta hash and schedule-determined counters against (a)'s; (d)
    the stream CLI on the card with ``--workload bursty --verify
-   --dtw-every 2``, through the DTW kernel.
+   --dtw-every 2``, through the DTW kernel;
+9. the sharded fleet runtime and the sharded slot table, every shard on
+   the one card: (a) ``run_fleet`` whole-stream with ``reconstruct=True``
+   on the paper's fleet (256 streams of ``make_fleet(256, FLEET_POINTS,
+   seed=0)``, the paper's config) on one shard, through the Lloyd kernel
+   and the DTW kernel, against ``symed_batch`` on the card (its plain
+   k-means): telemetry and pieces bitwise, at least 99% of symbols equal,
+   ``re_pieces`` within 1e-5 relative, and on the streams whose labels
+   agree ``k`` and the centers bitwise and ``re_symbols`` within 1e-5
+   relative; (b) the same slab streaming
+   (``FLEET_CHUNK``-point windows, a digitize every ``FLEET_EVERY``) over a
+   (pod, data) = (2, 2) and a (4,) mesh against one shard: telemetry
+   equal, pieces bitwise, at least 99% of symbols equal; (c) the stream CLI
+   with ``--devices 4 --workload flash_crowd --max-slots 16 --min-slots 4
+   --autoscale --verify --pretrace`` against ``--devices 1``: one
+   ``stream_summary`` and one fingerprint; (d) 8 of phase 6's sessions
+   (``SHARD_POINTS`` points each, the DTW monitor every
+   ``SHARD_DTW_EVERY`` windows) in a ``SHARD_BLOCKS``-block
+   ``StreamServer`` against one block, frame by frame: ``n_new`` exact,
+   endpoints and pieces bitwise, DTW readings equal, at least 99% of
+   symbols equal, and the closes through the Lloyd kernel.  Each part
+   prints its wall time, host syncs and kernel launches, counted from 0
+   just before it.
 
 The last two lines are a JSON summary of every kernel and
 ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --fleet-depths 1024,1280`` builds the kernels and
+runs only phase 9, (a)-(b) once at each depth (points per stream) and
+(c)-(d) once, printing each part's wall time: how the depth of (a)-(b)
+was chosen.  It prints no JSON summary.
 """
 from __future__ import annotations
 
@@ -145,6 +172,12 @@ SCALE = dict(sessions=256, length=512, window=64)
 SCALE_SERVER = dict(max_sessions=256, min_slots=32, autoscale=True,
                     shrink_patience=2, pretrace=True)
 SCALE_CHECKED = 8  # of its sessions held against symed_encode
+# phase 9: the fleet runtime on the paper's fleet (depth FLEET_POINTS, the
+# streaming runs in FLEET_CHUNK-point windows, digitizing every FLEET_EVERY),
+# symed_batch's plain k-means against it; the sharded table on CHECK_ROWS'
+# sessions, SHARD_POINTS points each, in SHARD_BLOCKS blocks
+FLEET_POINTS, FLEET_CHUNK, FLEET_EVERY = 1280, 256, 2
+SHARD_POINTS, SHARD_BLOCKS, SHARD_DTW_EVERY = 512, 4, 4
 LLOYD_ITERS = 10  # the paper's lloyd_iters
 LLOYD_EXTRA = [(2, 30000, 2, 8)]  # pieces too many for shared memory
 
@@ -1531,8 +1564,278 @@ def cli_phase(torch, dev):
           f"host syncs {n['host_syncs']}; the trace file loads "
           f"({len(doc['traceEvents'])} events)", flush=True)
 
+def _fleet_counts(torch, label, t0):
+    """Read the launch counts of one fleet part and print them."""
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = _launches()
+    print(f"{label}: {wall:.2f} s, host syncs {n['host_syncs']}, Lloyd "
+          f"launches {n['kmeans_lloyd']}, DTW launches {n['dtw']}, "
+          f"half-step {n['kmeans_assign']}, EWMA {n['ewma']}", flush=True)
+    if n["kmeans_lloyd"] <= 0:
+        raise AssertionError(f"{label}: no Lloyd kernel launch")
+    return n, wall
 
-def main() -> int:
+
+def _symbol_agreement(a, b, what):
+    """Pieces bitwise (``n_pieces``, lengths, increments); returns the
+    symbols that agree over the valid pieces, and their count."""
+    import numpy as np
+
+    a = {k: v.cpu().numpy() for k, v in a.items()}
+    b = {k: v.cpu().numpy() for k, v in b.items()}
+    for key in ("n_pieces", "pieces_len", "pieces_inc"):
+        if not np.array_equal(a[key], b[key]):
+            raise AssertionError(f"{what}: {key} differs")
+    valid = np.arange(a["symbols"].shape[1])[None, :] < a["n_pieces"][:, None]
+    agree = int(((a["symbols"] == b["symbols"]) & valid).sum())
+    return agree, int(valid.sum())
+
+
+def _same_labels_same_centers(torch, out, ref, what):
+    """Streams whose final labels agree over their pieces: ``k`` and the
+    centers bitwise (the raw centers are means over the labels, in plain
+    PyTorch either way), ``re_symbols`` within 1e-5 relative.  Returns the
+    number of such streams and the largest relative ``re_symbols`` gap."""
+    o = {k: out[k].cpu() for k in ("symbols", "n_pieces", "k", "centers",
+                                   "re_symbols")}
+    r = {k: ref[k].cpu() for k in o}
+    valid = (torch.arange(o["symbols"].shape[1])[None, :]
+             < o["n_pieces"][:, None])
+    same = ((o["symbols"] == r["symbols"]) | ~valid).all(1)
+    if not bool(same.any()):
+        raise AssertionError(f"{what}: no stream's labels agree")
+    if not (torch.equal(o["k"][same], r["k"][same])
+            and torch.equal(o["centers"][same], r["centers"][same])):
+        raise AssertionError(f"{what}: k or centers differ where the labels "
+                             "agree")
+    gap = ((o["re_symbols"] - r["re_symbols"]).abs()
+           / r["re_symbols"].abs().clamp_min(1e-30))[same]
+    rel = float(gap.max())
+    if rel > 1e-5:
+        raise AssertionError(f"{what}: re_symbols {rel:.3e} relative where "
+                             "the labels agree")
+    return int(same.sum()), rel
+
+
+def fleet_phase(torch, dev, points=FLEET_POINTS):
+    """Phase 9 (a)-(b): ``run_fleet`` on the paper's fleet, whole-stream
+    with ``reconstruct=True`` on one shard against ``symed_batch`` on the
+    card, then streaming over a (2, 2) and a (4,) mesh on one card against
+    a one-shard streaming run."""
+    from repro_torch.core import prng
+    from repro_torch.core.receiver import delta_frame_bytes
+    from repro_torch.core.symed import symed_batch
+    from repro_torch.data.synthetic import make_fleet
+    from repro_torch.launch.fleet import fleet_data_mesh, run_fleet
+    from repro_torch.launch.mesh import make_pod_data_mesh
+
+    cfg = _paper_cfg()
+    data = make_fleet(SESSIONS, points, seed=0)
+    key = prng.key(0)
+    one = fleet_data_mesh(1, device=dev)
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    out, tele = run_fleet(data, cfg, key, one, reconstruct=True)
+    n, wall = _fleet_counts(torch, f"fleet (a): whole-stream, reconstruct, "
+                            f"{SESSIONS} x {points}, one shard", t0)
+    if n["dtw"] != 2:
+        raise AssertionError(f"fleet (a): {n['dtw']} DTW launches, not 2")
+    t0 = time.perf_counter()
+    ref = symed_batch(data, cfg, key, reconstruct=True, device=dev)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    agree, total = _symbol_agreement(out, ref, "fleet (a) vs symed_batch")
+    n_pieces = ref["n_pieces"]
+    want = {"streams": float(SESSIONS),
+            "points": float(SESSIONS * points),
+            "pieces": float(n_pieces.float().sum()),
+            "wire_bytes": float(ref["wire_bytes"].sum()),
+            "raw_bytes": float(4 * SESSIONS * points),
+            "wire_out_bytes": float(delta_frame_bytes(n_pieces).sum())}
+    got = {k: float(v) for k, v in tele.items()}
+    if got != want:
+        raise AssertionError(f"fleet (a) telemetry {got} != symed_batch's "
+                             f"{want}")
+    rel = float(((out["re_pieces"] - ref["re_pieces"]).abs()
+                 / ref["re_pieces"].abs().clamp_min(1e-30)).max())
+    if agree < 0.99 * total or rel > 1e-5:
+        raise AssertionError(f"fleet (a) vs symed_batch: symbols "
+                             f"{agree}/{total}, re_pieces {rel:.3e} relative")
+    if not bool(torch.isfinite(out["re_symbols"]).all()):
+        raise AssertionError("fleet (a): re_symbols not finite")
+    same, rel_sym = _same_labels_same_centers(torch, out, ref, "fleet (a)")
+    print(f"fleet (a) vs symed_batch on the card (plain k-means, {t_batch:.2f}"
+          f" s): pieces and telemetry bitwise ({int(got['pieces'])} pieces, "
+          f"{int(got['wire_bytes'])} wire bytes of {int(got['raw_bytes'])}), "
+          f"symbols {agree}/{total}, re_pieces within {rel:.3e} relative "
+          f"(mean {float(out['re_pieces'].mean()):.4f}, re_symbols mean "
+          f"{float(out['re_symbols'].mean()):.4f}); the {same} streams "
+          f"whose labels agree: k and centers bitwise, re_symbols within "
+          f"{rel_sym:.3e} relative; {SESSIONS * points / wall:.1f} points/s",
+          flush=True)
+
+    stream_kw = dict(chunk_len=FLEET_CHUNK, digitize_every_k=FLEET_EVERY)
+    _reset_launches()
+    t0 = time.perf_counter()
+    base, base_tele = run_fleet(data, cfg, key, one, **stream_kw)
+    _fleet_counts(torch, f"fleet (b): streaming({FLEET_CHUNK}, digitize "
+                  f"every {FLEET_EVERY}), one shard", t0)
+    base_tele = {k: float(v) for k, v in base_tele.items()}
+    for name, mesh, axis in (
+            ("(pod, data) = (2, 2)", make_pod_data_mesh(2, 2, device=dev),
+             ("pod", "data")),
+            ("(data,) = (4,)", fleet_data_mesh(4, device=dev), "data")):
+        _reset_launches()
+        t0 = time.perf_counter()
+        res, tele = run_fleet(data, cfg, key, mesh, axis=axis, **stream_kw)
+        _fleet_counts(torch, f"fleet (b): streaming over {name}, "
+                      f"{len(set(mesh.devices.flat))} card", t0)
+        tele = {k: float(v) for k, v in tele.items()}
+        if tele != base_tele:
+            raise AssertionError(f"fleet (b) {name}: telemetry {tele} != "
+                                 f"one shard's {base_tele}")
+        agree, total = _symbol_agreement(res, base, f"fleet (b) {name}")
+        if agree < 0.99 * total:
+            raise AssertionError(f"fleet (b) {name}: symbols {agree}/{total}")
+        print(f"fleet (b) {name} vs one shard: telemetry equal "
+              f"({int(tele['pieces'])} pieces, {int(tele['wire_out_bytes'])} "
+              f"wire-out bytes), pieces bitwise, symbols {agree}/{total}",
+              flush=True)
+
+
+def _cli_run(torch, devices, dev):
+    """The stream CLI on flash_crowd with ``--devices``; returns its
+    ``stream_summary`` line, its report and its launch counts."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.stream import main as stream_main
+
+    out = io.StringIO()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rep = stream_main(["--devices", str(devices), "--workload",
+                           "flash_crowd", "--max-slots", "16", "--min-slots",
+                           "4", "--autoscale", "--verify", "--pretrace",
+                           "--device", dev])
+    n, wall = _fleet_counts(torch, f"sharded CLI (c): --devices {devices}",
+                            t0)
+    text = out.getvalue()
+    print("\n".join(f"cli --devices {devices} | " + line
+                    for line in text.splitlines()), flush=True)
+    if "delta equivalence       : OK" not in text:
+        raise AssertionError(f"--devices {devices}: the CLI did not verify")
+    summary = [l for l in text.splitlines() if l.startswith("stream_summary")]
+    return summary, rep
+
+
+def sharded_cli_phase(torch, dev):
+    """Phase 9 (c): the stream CLI with a 4-block table against one block."""
+    four, rep4 = _cli_run(torch, 4, dev)
+    one, rep1 = _cli_run(torch, 1, dev)
+    keys = ("points_in", "symbols_out", "frames_out", "bytes_out", "steps",
+            "opened", "closed", "evicted", "grows", "shrinks")
+    if four != one or rep4["fingerprint"] != rep1["fingerprint"] or any(
+            rep4[k] != rep1[k] for k in keys):
+        raise AssertionError(f"--devices 4 vs 1: {four} {rep4} vs {one} "
+                             f"{rep1}")
+    print(f"sharded CLI (c): --devices 4 and 1 give one stream_summary and "
+          f"one fingerprint ({rep4['fingerprint'][:16]}); "
+          f"{int(rep4['opened'])} sessions, {int(rep4['grows'])} grows, "
+          f"{int(rep4['shrinks'])} shrinks", flush=True)
+
+
+def sharded_table_phase(torch, dev):
+    """Phase 9 (d): 8 of phase 6's sessions served by a 4-block
+    ``StreamServer`` on one card, frame by frame against one block."""
+    import numpy as np
+
+    from repro_torch.core import prng
+    from repro_torch.data.synthetic import make_fleet
+    from repro_torch.launch.fleet import fleet_data_mesh
+    from repro_torch.launch.stream import StreamServer
+
+    cfg = _paper_cfg()
+    data = make_fleet(SESSIONS, POINTS, seed=0)[list(CHECK_ROWS),
+                                                 :SHARD_POINTS]
+    sids = [f"s{r}" for r in CHECK_ROWS]
+    kw = dict(max_sessions=len(sids), window_cap=WINDOW, digitize_every_k=1,
+              dtw_every=SHARD_DTW_EVERY, device=dev)
+    servers = {}
+    for name, mesh in (("one block", None),
+                       (f"{SHARD_BLOCKS} blocks",
+                        fleet_data_mesh(SHARD_BLOCKS, device=dev))):
+        server = StreamServer(cfg, mesh=mesh, **kw)
+        base = prng.key(0)
+        for r, sid in zip(CHECK_ROWS, sids):
+            server.open(sid, key=prng.fold_in(base, r + 1))
+        servers[name] = server
+    flat, sharded = servers.values()
+    agree = total = 0
+    sharded_wall = 0.0
+    _reset_launches()
+    counts = _launches()
+    for w in range(0, SHARD_POINTS, WINDOW):
+        batch = {sid: data[i, w: w + WINDOW] for i, sid in enumerate(sids)}
+        a = flat.ingest_many(batch)
+        n_before = _launches()
+        t0 = time.perf_counter()
+        b = sharded.ingest_many(batch)
+        torch.cuda.synchronize()
+        sharded_wall += time.perf_counter() - t0
+        n_after = _launches()
+        counts = {k: counts[k] + n_after[k] - n_before[k] for k in counts}
+        for sid in sids:
+            if a[sid]["n_new"] != b[sid]["n_new"] or not np.array_equal(
+                    a[sid]["endpoints"], b[sid]["endpoints"]):
+                raise AssertionError(f"sharded (d) window {w} {sid}: n_new "
+                                     "or endpoints differ")
+            agree += int((a[sid]["labels"] == b[sid]["labels"]).sum())
+            total += a[sid]["n_new"]
+    closes = 0
+    for sid in sids:
+        if flat.session_stats(sid)["dtw"] != sharded.session_stats(sid)["dtw"]:
+            raise AssertionError(f"sharded (d) {sid}: DTW readings differ")
+        ca = flat.close(sid)
+        n_before = _launches()["kmeans_lloyd"]
+        cb = sharded.close(sid)
+        closes += _launches()["kmeans_lloyd"] - n_before
+        if ca["n_pieces"] != cb["n_pieces"] or not np.array_equal(
+                ca["out"]["pieces_len"], cb["out"]["pieces_len"]):
+            raise AssertionError(f"sharded (d) {sid}: pieces differ")
+        if ca["delta"]["n_new"] != cb["delta"]["n_new"]:
+            raise AssertionError(f"sharded (d) {sid}: closing n_new differs")
+        agree += int((ca["delta"]["labels"] == cb["delta"]["labels"]).sum())
+        total += ca["delta"]["n_new"]
+    if closes <= 0:
+        raise AssertionError("sharded (d): the closes launched no Lloyd "
+                             "kernel")
+    if agree < 0.99 * total:
+        raise AssertionError(f"sharded (d): symbols {agree}/{total}")
+    if counts["kmeans_lloyd"] <= 0 or counts["dtw"] <= 0:
+        raise AssertionError(f"sharded (d): launches {counts}")
+    print(f"sharded table (d): {len(sids)} sessions x {SHARD_POINTS} points "
+          f"in {SHARD_BLOCKS} blocks on "
+          f"{len(set(map(str, sharded.block_devices)))} card, "
+          f"{sharded.totals['steps']} rounds in {sharded_wall:.2f} s; host "
+          f"syncs {counts['host_syncs']}, Lloyd launches "
+          f"{counts['kmeans_lloyd']} (and {closes} in the 8 closes), DTW "
+          f"launches {counts['dtw']}; against one block frame by frame: "
+          f"n_new exact, endpoints and pieces bitwise, DTW readings equal, "
+          f"symbols {agree}/{total} (the closing frames' too)", flush=True)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
+    ap.add_argument("--fleet-depths", default=None,
+                    help="comma-separated points per stream: only build "
+                         "the kernels and time phase 9 at each depth")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1552,6 +1855,9 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"nvcc: {_nvcc_version()}", flush=True)
+    if args.fleet_depths:
+        return _fleet_depths(torch, dev, smi, [
+            int(d) for d in args.fleet_depths.split(",")])
 
     # the CPU port's side of phase 6 runs beside the card's phases
     ctx = multiprocessing.get_context("spawn")
@@ -1567,7 +1873,27 @@ def main() -> int:
         worker.join(timeout=60)
 
 
-def _card_phases(torch, dev, smi, cpu_results) -> int:
+def _fleet_depths(torch, dev, smi, depths) -> int:
+    """Phase 9 alone: (a)-(b) at each depth, (c)-(d) once, timed."""
+    _build_kernels()
+    took = {}
+    for points in depths:
+        phase(f"fleet (a)-(b) at {points} points")
+        t0 = time.perf_counter()
+        fleet_phase(torch, dev, points)
+        took[f"(a)-(b) at {points}"] = time.perf_counter() - t0
+    phase("sharded (c)-(d)")
+    t0 = time.perf_counter()
+    sharded_cli_phase(torch, dev)
+    sharded_table_phase(torch, dev)
+    took["(c)-(d)"] = time.perf_counter() - t0
+    print(smi)
+    print("phase 9 wall: " + ", ".join(f"{k} {v:.2f} s"
+                                       for k, v in took.items()), flush=True)
+    return 0
+
+
+def _build_kernels():
     phase("build")
     from repro_torch.kernels import _build
 
@@ -1585,6 +1911,10 @@ def _card_phases(torch, dev, smi, cpu_results) -> int:
     for name in ("dtw", "ewma"):
         for line in _ptxas_report(_build.build(name).with_suffix(".log")):
             print(f"ptxas {name}: {line}", flush=True)
+
+
+def _card_phases(torch, dev, smi, cpu_results) -> int:
+    _build_kernels()
 
     phase("k-means kernels against their plain versions")
     measured = kernel_phase(torch, dev)
@@ -1614,6 +1944,12 @@ def _card_phases(torch, dev, smi, cpu_results) -> int:
     cli_phase(torch, dev)
     phase("replay (a): the zoo against the CPU port")
     zoo_against_cpu(zoo, _recv(cpu_results, "phase 8 (a)"))
+    phase("fleet (a)-(b): run_fleet on the paper's fleet")
+    fleet_phase(torch, dev)
+    phase("sharded (c): the stream CLI with --devices 4")
+    sharded_cli_phase(torch, dev)
+    phase("sharded (d): a 4-block slot table against one block")
+    sharded_table_phase(torch, dev)
     # the half-step's and the ewma kernel's launches are their own entry
     # points' (phases 3 and 5): the service launches neither
     for name in ("kmeans_assign", "ewma"):

@@ -360,6 +360,44 @@ def symed_receive_masked_pieces(piece_endpoints, piece_steps, n_valid, hello,
     return _unbatch1(table), _unbatch1(info)
 
 
+def _receive_chunk_table(chunk, cfg: SymEDConfig,
+                         state: Optional[ReceiverState], keys, *,
+                         digitize_every_k: int, use_kernel: bool,
+                         single: bool):
+    """The online receiver of a batch of streams: ingest one ``(B, C)``
+    window per stream (one batched sender, one wire compaction, one
+    digitize pass over the batch).
+
+    ``state=None`` opens each stream at its window's first point and seeds
+    its digitizer from ``keys (B, 2)``.  ``single`` picks the sender's EWMV
+    rounding (``normalize.ewm_step``); ``use_kernel`` runs the Lloyd loops
+    in the CUDA k-means kernel.  Returns ``(state, info)`` with a leading
+    ``B`` axis.
+    """
+    dev = chunk.device
+    if state is None:
+        blank = receiver_init(cfg, keys)
+        state = blank._replace(comp=compressor_init(chunk[:, 0]),
+                               t0=chunk[:, 0],
+                               t_seen=torch.ones_like(blank.t_seen))
+        chunk = chunk[:, 1:]
+    comp, ev = compressor_scan(chunk, state.comp, tol=cfg.tol,
+                               len_max=cfg.len_max, alpha=cfg.alpha,
+                               single=single)
+    step_idx = state.t_seen[:, None] + torch.arange(
+        chunk.shape[1], dtype=torch.int32, device=dev)
+    endpoints, steps, n_pieces = compact_chunk(
+        state.endpoints, state.steps, state.n_pieces, ev.emit, ev.endpoint,
+        step_idx)
+    table, info = _digitize_and_report(
+        state, torch.ones_like(state.t0, dtype=torch.bool), comp, state.t0,
+        state.t_seen + chunk.shape[1], endpoints, steps, n_pieces,
+        state.chunks + 1, cfg=cfg, digitize_every_k=digitize_every_k,
+        use_kernel=use_kernel, mark=None)
+    del info["t_seen"]  # the reference's per-stream info has no clock
+    return table, info
+
+
 def symed_receive_chunk(ts_chunk, cfg: SymEDConfig,
                         state: Optional[ReceiverState] = None, key=None, *,
                         digitize_every_k: int = 1, device=None):
@@ -384,31 +422,15 @@ def symed_receive_chunk(ts_chunk, cfg: SymEDConfig,
     _check_cadence(digitize_every_k)
     dev = resolve_device(device)
     chunk = torch.as_tensor(ts_chunk, dtype=torch.float32,
-                            device=dev).reshape(-1)
+                            device=dev).reshape(1, -1)
     if state is None:
-        blank = receiver_init(cfg, prng.as_key(key, dev))
-        one = torch.ones_like(blank.t_seen)
-        state = blank._replace(comp=compressor_init(chunk[0]), t0=chunk[0],
-                               t_seen=one)
-        chunk = chunk[1:]
+        keys = _key1(key, dev)
     else:
-        state = _to_device(state, dev)
+        keys, state = None, _batch1(_to_device(state, dev))
     # the rank-1 sender: the reference's single-stream rounding
-    comp, ev = compressor_scan(chunk, state.comp, tol=cfg.tol,
-                               len_max=cfg.len_max, alpha=cfg.alpha,
-                               single=True)
-    step_idx = state.t_seen + torch.arange(chunk.shape[0], dtype=torch.int32,
-                                           device=dev)
-    endpoints, steps, n_pieces = compact_chunk(
-        state.endpoints, state.steps, state.n_pieces, ev.emit, ev.endpoint,
-        step_idx)
-    t_seen = state.t_seen + chunk.shape[0]
-    table, info = _digitize_and_report(
-        _batch1(state), torch.ones((1,), dtype=torch.bool, device=dev),
-        _batch1(comp), state.t0[None], t_seen[None], endpoints[None],
-        steps[None], n_pieces[None], (state.chunks + 1)[None], cfg=cfg,
-        digitize_every_k=digitize_every_k, use_kernel=False, mark=None)
-    del info["t_seen"]  # the reference's per-stream info has no clock
+    table, info = _receive_chunk_table(
+        chunk, cfg, state, keys, digitize_every_k=digitize_every_k,
+        use_kernel=False, single=True)
     return _unbatch1(table), _unbatch1(info)
 
 
@@ -437,14 +459,16 @@ def _score(out, ts, lens, incs, n_pieces, t0) -> None:
 
 def symed_receive_finish(state: ReceiverState, cfg: SymEDConfig,
                          ts=None, reconstruct: bool = False, *,
-                         with_delta: bool = False) -> Dict[str, Any]:
+                         with_delta: bool = False,
+                         use_kernel: bool = False) -> Dict[str, Any]:
     """Close a stream: flush the tail, digitize the rest.
 
     Takes one slot's state (or a table).  The output dict matches
     ``symed_encode``'s; ``with_delta=True`` adds ``out["symbol_delta"]``,
     the closing wire-out frame.  ``reconstruct=True`` also rebuilds and
     scores the stream against ``ts``, the raw points it ingested (``(T,)``,
-    or ``(S, T)`` for a table).
+    or ``(S, T)`` for a table).  ``use_kernel`` runs the Lloyd loops in the
+    CUDA k-means kernel.
     """
     if reconstruct and ts is None:
         raise ValueError("reconstruct=True requires the raw stream ts")
@@ -455,7 +479,8 @@ def symed_receive_finish(state: ReceiverState, cfg: SymEDConfig,
         st.endpoints, st.steps, st.n_pieces, tail, st.t_seen)
     lens, incs = pieces_from_wire(endpoints, steps, n_pieces, st.t0)
     dig, span_syms = digitize_span_table(
-        st.dig, lens, incs, st.dig.n, n_pieces, **cfg.digitize_kw())
+        st.dig, lens, incs, st.dig.n, n_pieces, use_kernel=use_kernel,
+        **cfg.digitize_kw())
     idx = torch.arange(cfg.n_max, device=n_pieces.device)[None, :]
     in_span = (idx >= st.dig.n[:, None]) & (idx < n_pieces[:, None])
     symbols_online = torch.where(in_span, span_syms, st.symbols_online)
@@ -481,20 +506,22 @@ def symed_receive_finish(state: ReceiverState, cfg: SymEDConfig,
 
 
 def _receive(events, keys, ts, n_points: int, cfg: SymEDConfig, *,
-             reconstruct: bool) -> Dict[str, torch.Tensor]:
+             reconstruct: bool,
+             use_kernel: bool = False) -> Dict[str, torch.Tensor]:
     """Wire -> receiver for a batch of whole streams: compact, digitize,
     score.  Shared by ``symed_encode``, ``symed_finish`` and ``symed_batch``
     so their outputs agree by construction.  ``events`` carry per-step
     ``emit``/``endpoint`` and the trailing ``tail``, time on the last axis
     of ``(B, T)``; ``keys (B, 2)`` seed the digitizers; ``ts (B, T)`` is the
-    raw stream (its first points anchor the wire)."""
+    raw stream (its first points anchor the wire).  ``use_kernel`` runs
+    the Lloyd loops in the CUDA k-means kernel."""
     t0 = ts[:, 0]
     wire = compact_events(events, n_max=cfg.n_max, t0=t0)
     n_pieces = wire["n_pieces"]
     dig = digitizer_init(cfg.n_max, cfg.k_max, keys)
     dig, symbols = digitize_span_table(
         dig, wire["lengths"], wire["incs"], torch.zeros_like(n_pieces),
-        n_pieces, **cfg.digitize_kw())
+        n_pieces, use_kernel=use_kernel, **cfg.digitize_kw())
     points = torch.tensor(n_points, dtype=torch.int32, device=ts.device)
     out = {
         "symbols": dig.labels,
@@ -586,11 +613,21 @@ def symed_batch(ts, cfg: SymEDConfig, key, reconstruct: bool = True,
     ts = torch.as_tensor(ts, dtype=torch.float32,
                          device=resolve_device(device))
     b = ts.shape[0]
-    events = compress_stream(ts, tol=cfg.tol, len_max=cfg.len_max,
-                             alpha=cfg.alpha, single=b <= 3)
     keys = prng.split(prng.as_key(key, ts.device), b)
+    return _encode_batch(ts, keys, cfg, single=b <= 3,
+                         reconstruct=reconstruct)
+
+
+def _encode_batch(ts, keys, cfg: SymEDConfig, *, single: bool,
+                  reconstruct: bool,
+                  use_kernel: bool = False) -> Dict[str, torch.Tensor]:
+    """Whole streams ``ts (B, T)`` with their digitizer keys ``keys (B,
+    2)``: one batched sender (``single`` picks its EWMV rounding), then
+    ``_receive`` (``use_kernel`` as there)."""
+    events = compress_stream(ts, tol=cfg.tol, len_max=cfg.len_max,
+                             alpha=cfg.alpha, single=single)
     return _receive(events, keys, ts, ts.shape[-1], cfg,
-                    reconstruct=reconstruct)
+                    reconstruct=reconstruct, use_kernel=use_kernel)
 
 
 def _key1(key, device) -> torch.Tensor:

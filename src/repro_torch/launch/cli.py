@@ -4,14 +4,24 @@ Port of ``repro.launch.cli``: the same flags, defaults and checks, and the
 same error messages letter for letter, so that the port's CLIs (stream,
 transport and ``repro_torch.workload``) accept and reject what the
 reference's accept and reject.  Only the groups and checks of flags that a
-port CLI mounts are here: ``--devices`` waits for the sharded table.
+port CLI mounts are here.  ``--devices N`` asks for N shards of a data mesh
+(``repro_torch.launch.mesh``): host shards with ``--device cpu``, shards
+round-robin over the cards with ``cuda``.  Torch pins no device count at
+import, so nothing here has to run before ``import torch`` (the reference's
+``prescan_host_devices`` has no counterpart).
 """
 from __future__ import annotations
 
 import argparse
 
-__all__ = ["add_symed_args", "add_metrics_args", "add_slot_table_args",
-           "validate_shared_args"]
+__all__ = ["add_devices_arg", "add_symed_args", "add_metrics_args",
+           "add_slot_table_args", "validate_shared_args"]
+
+
+def add_devices_arg(ap: argparse.ArgumentParser, *, default: int = 1,
+                    help: str = "forced host device count; >1 shards "
+                                "over a data mesh") -> None:
+    ap.add_argument("--devices", type=int, default=default, help=help)
 
 
 def add_symed_args(ap: argparse.ArgumentParser) -> None:
@@ -44,8 +54,8 @@ def add_slot_table_args(ap: argparse.ArgumentParser, *,
     """The resident ``StreamServer`` table shape (stream + transport serve)."""
     ap.add_argument("--max-slots", type=int, default=max_slots,
                     help="resident slot-table capacity")
-    ap.add_argument("--min-slots", type=int, default=1,
-                    help="autoscale floor")
+    ap.add_argument("--min-slots", type=int, default=None,
+                    help="autoscale floor (default: --devices)")
     ap.add_argument("--autoscale", action="store_true",
                     help="grow/shrink the slot table between steps "
                          "(power-of-two ladder from --min-slots)")
@@ -87,12 +97,21 @@ def validate_shared_args(ap: argparse.ArgumentParser, args) -> None:
         ap.error(f"--tol must be > 0, got {args.tol}")
     if has("alpha") and not 0 < args.alpha <= 1:
         ap.error(f"--alpha must be in (0, 1], got {args.alpha}")
-    if has("max_slots") and args.max_slots < 1:
-        ap.error(f"--max-slots must be >= 1, got {args.max_slots}")
-    if (has("min_slots") and has("max_slots")
-            and not 1 <= args.min_slots <= args.max_slots):
-        ap.error(f"--min-slots {args.min_slots} must be in "
-                 f"[1, --max-slots {args.max_slots}]")
+    if has("devices") and args.devices < 1:
+        ap.error(f"--devices must be >= 1, got {args.devices}")
+    if has("max_slots"):
+        if args.max_slots < 1:
+            ap.error(f"--max-slots must be >= 1, got {args.max_slots}")
+        if has("devices") and args.max_slots % args.devices:
+            ap.error(f"--max-slots {args.max_slots} must divide over "
+                     f"--devices {args.devices}")
+    if has("min_slots"):
+        if has("max_slots") and not 1 <= args.min_slots <= args.max_slots:
+            ap.error(f"--min-slots {args.min_slots} must be in "
+                     f"[1, --max-slots {args.max_slots}]")
+        if has("devices") and args.min_slots % args.devices:
+            ap.error(f"--min-slots {args.min_slots} must divide over "
+                     f"--devices {args.devices}")
     if has("shrink_patience") and args.shrink_patience < 1:
         ap.error(f"--shrink-patience must be >= 1, got {args.shrink_patience}")
     if has("metrics_port") and not 0 <= args.metrics_port <= 65535:

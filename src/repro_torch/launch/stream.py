@@ -24,6 +24,15 @@ reconstruction from its pieces against the raw points seen so far every
 ``m`` windows (``reconstruct_from_pieces`` + ``kernels.ops.dtw``: on CUDA
 the DTW kernel, one launch for all due sessions of one length).
 
+Sharded table (``mesh=``): the slots are held as ``mesh.devices.size``
+contiguous blocks, block ``i`` on ``mesh.devices.flat[i]`` (the layout
+``P("data")`` gives the reference's table).  Each round packs and stages
+its arrivals per block and runs one table step per block; the blocks'
+outputs are joined on the first device, so a round still makes one
+device-to-host copy.  Every resize re-splits the table at the new
+capacity, and live slots move between blocks unchanged.  One process
+drives every block.
+
 Slot lifecycle: ``open`` allocates a free slot (growing the table on the
 autoscale ladder, or with ``evict_idle`` closing the least-recently-active
 session, whose final output is parked in ``server.evicted``); ``close``
@@ -186,12 +195,18 @@ class StreamServer:
         it, ``close`` shrinks it once occupancy has stayed at or below a
         quarter of the capacity for ``shrink_patience`` consecutive closes.
         Resizes are pure gathers and concatenations of the table's tensors.
-      min_slots: the autoscale floor, the ladder's first rung.
-      use_kernel: run the Lloyd loops in the CUDA k-means kernel
-        (default: on when the table lives on CUDA).
+      min_slots: the autoscale floor, the ladder's first rung (default: the
+        mesh device count, else 1).
+      use_kernel: run the Lloyd loops (every round's and each close's) in
+        the CUDA k-means kernel (default: on when the table lives on CUDA).
       seed: base PRNG seed for per-session digitizer keys.
       device: where the table lives; ``cuda`` unless ``"cpu"`` is passed.
-        Without CUDA, only ``device="cpu"`` works.
+        Without CUDA, only ``device="cpu"`` works.  With a mesh, the mesh
+        places the table; ``device``, if given, must name its devices'
+        kind.
+      mesh: optional 1-D ``(data,)`` mesh (``repro_torch.launch.mesh``);
+        the slot table shards over it (``max_sessions``, ``min_slots`` and
+        every ladder capacity must divide over the mesh devices).
       clock: a ``PhaseClock`` that times the phases of every round
         (optional): sender (raw in) or wire (compressed in), digitize,
         harvest.
@@ -224,13 +239,14 @@ class StreamServer:
         dtw_band: Optional[int] = None,
         evict_idle: bool = False,
         autoscale: bool = False,
-        min_slots: int = 1,
+        min_slots: Optional[int] = None,
         shrink_patience: int = 3,
         use_kernel: Optional[bool] = None,
         seed: int = 0,
         device=None,
         clock: Optional[PhaseClock] = None,
         pretrace: bool = False,
+        mesh=None,
         obs=None,
     ):
         if max_sessions < 1:
@@ -240,15 +256,34 @@ class StreamServer:
         if digitize_every_k < 0:
             raise ValueError(
                 f"digitize_every_k must be >= 0, got {digitize_every_k}")
+        if dtw_every < 0:
+            raise ValueError(f"dtw_every must be >= 0, got {dtw_every}")
+        if mesh is not None and max_sessions % mesh.devices.size:
+            raise ValueError(
+                f"max_sessions={max_sessions} must divide over the "
+                f"{mesh.devices.size}-device mesh")
+        if min_slots is None:
+            min_slots = mesh.devices.size if mesh is not None else 1
         if not 1 <= min_slots <= max_sessions:
             raise ValueError(
                 f"min_slots={min_slots} must be in [1, {max_sessions}]")
+        if mesh is not None and min_slots % mesh.devices.size:
+            raise ValueError(
+                f"min_slots={min_slots} must divide over the "
+                f"{mesh.devices.size}-device mesh")
         if shrink_patience < 1:
             raise ValueError(
                 f"shrink_patience must be >= 1, got {shrink_patience}")
-        if dtw_every < 0:
-            raise ValueError(f"dtw_every must be >= 0, got {dtw_every}")
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.block_devices = [resolve_device(device)]
+        else:
+            self.block_devices = [torch.device(d) for d in mesh.devices.flat]
+            if device is not None and (torch.device(device).type
+                                       != self.block_devices[0].type):
+                raise ValueError(
+                    f"device={device!r} does not name the mesh's devices "
+                    f"({self.block_devices[0].type})")
+        self.device = self.block_devices[0]
         self.cfg = cfg
         self.max_sessions = int(max_sessions)
         self.window_cap = int(window_cap)
@@ -284,7 +319,7 @@ class StreamServer:
         # the DTW monitor's books (``dtw_seconds`` is wall time, so it stays
         # out of ``totals``); ``report()`` merges them
         self.monitor = {"dtw_readings": 0, "dtw_seconds": 0.0}
-        self._table = self._blanks(self.capacity)
+        self._blocks = self._split(self._blanks(self.capacity))
         self.obs = as_obs(obs)
         self._obs_on = self.obs.enabled
         self._annotate = (annotate if self.obs.torch_annotate
@@ -338,24 +373,26 @@ class StreamServer:
 
     def _pretrace_ladder(self) -> None:
         """Step a blank table once raw in and once compressed in, with zero
-        valid points, at every capacity the table can take; the blank
-        tables are dropped, so no state is left behind."""
+        valid points, at every capacity the table can take (block by block,
+        as the table is split at that capacity); the blank tables are
+        dropped, so no state is left behind."""
         t0 = time.perf_counter_ns()
         ladder = self._ladder if self.autoscale else [self.capacity]
         kw = dict(digitize_every_k=self.digitize_every_k,
                   use_kernel=self.use_kernel)
         for cap in ladder:
-            win_f = torch.zeros((cap, self.window_cap), dtype=torch.float32,
-                                device=self.device)
-            win_i = torch.zeros((cap, self.window_cap), dtype=torch.int32,
-                                device=self.device)
-            cnt = torch.zeros((cap,), dtype=torch.int32, device=self.device)
-            hello = torch.zeros((cap,), dtype=torch.float32,
-                                device=self.device)
-            blanks, _ = symed_receive_masked_chunk_table(
-                win_f, cnt, self.cfg, self._blanks(cap), **kw)
-            symed_receive_masked_pieces_table(
-                win_f, win_i, cnt, hello, cnt, self.cfg, blanks, **kw)
+            for block in self._split(self._blanks(cap)):
+                n, dev = block.t0.shape[0], block.t0.device
+                win_f = torch.zeros((n, self.window_cap), dtype=torch.float32,
+                                    device=dev)
+                win_i = torch.zeros((n, self.window_cap), dtype=torch.int32,
+                                    device=dev)
+                cnt = torch.zeros((n,), dtype=torch.int32, device=dev)
+                hello = torch.zeros((n,), dtype=torch.float32, device=dev)
+                block, _ = symed_receive_masked_chunk_table(
+                    win_f, cnt, self.cfg, block, **kw)
+                symed_receive_masked_pieces_table(
+                    win_f, win_i, cnt, hello, cnt, self.cfg, block, **kw)
             self._stepped.update({("", cap), ("_pieces", cap)})
         self.obs.tracer.add("stream.pretrace", t0, {"capacities": ladder})
 
@@ -371,6 +408,45 @@ class StreamServer:
     def _blanks(self, n: int):
         """``n`` fresh blank slots (keys are placeholders; ``open`` reseeds)."""
         return receiver_init(self.cfg, prng.split(self._base_key, n))
+
+    def _split(self, table):
+        """A whole table as its blocks: block ``i`` holds the ``i``-th
+        contiguous run of ``capacity / n_blocks`` slots, on device ``i``."""
+        n = table.t0.shape[0] // len(self.block_devices)
+        return [_map(lambda l: l[i * n: (i + 1) * n].to(dev), table)
+                for i, dev in enumerate(self.block_devices)]
+
+    @property
+    def _table(self):
+        """The whole slot table, its blocks joined on the first device."""
+        return self._gather(list(range(self.capacity)))
+
+    def _locate(self, slot: int):
+        """``(block, slot within the block)`` of a table slot."""
+        return divmod(slot, self.capacity // len(self._blocks))
+
+    def _gather(self, slots: List[int]):
+        """The states of ``slots``, in that order, on the first device: one
+        gather per block that holds any of them."""
+        parts, order = [], []
+        for b, block in enumerate(self._blocks):
+            rows = [i for i, s in enumerate(slots) if self._locate(s)[0] == b]
+            if not rows:
+                continue
+            idx = torch.tensor([self._locate(slots[i])[1] for i in rows],
+                               dtype=torch.long, device=block.t0.device)
+            parts.append(_map(lambda l: l.index_select(0, idx).to(
+                self.device), block))
+            order += rows
+        if len(parts) == 1:
+            joined = parts[0]
+        else:
+            joined = _map(lambda *ls: torch.cat(ls), *parts)
+        if order == sorted(order):
+            return joined
+        inv = torch.tensor(np.argsort(order), dtype=torch.long,
+                           device=self.device)
+        return _map(lambda l: l.index_select(0, inv), joined)
 
     # ------------------------------------------------------------------ API
 
@@ -419,19 +495,18 @@ class StreamServer:
         self._serial += 1
         if key is None:
             key = prng.fold_in(self._base_key, self._serial)
-        blank = receiver_init(self.cfg, prng.as_key(key, self.device))
-        self._table = _map(lambda l, b: l.index_copy(0, self._slot_t(slot),
-                                                     b[None]),
-                           self._table, blank)
+        b, local = self._locate(slot)
+        dev = self.block_devices[b]
+        blank = receiver_init(self.cfg, prng.as_key(key, dev))
+        at = torch.tensor([local], dtype=torch.long, device=dev)
+        self._blocks[b] = _map(lambda l, x: l.index_copy(0, at, x[None]),
+                               self._blocks[b], blank)
         self._sessions[stream_id] = _Session(
             stream_id=stream_id, slot=slot, last_active=self._clock,
             raw=[] if self.dtw_every else None)
         self.totals["opened"] += 1
         self.totals["bytes_in"] += 4.0  # the t0 "hello" payload
         return slot
-
-    def _slot_t(self, slot: int) -> torch.Tensor:
-        return torch.tensor([slot], dtype=torch.long, device=self.device)
 
     def ingest(self, stream_id: str, window) -> dict:
         """Feed one ragged arrival; returns its symbol-delta frame."""
@@ -533,44 +608,47 @@ class StreamServer:
                                 {"sessions": len(active)})
 
     def _dispatch(self, padded: np.ndarray, n_valid: np.ndarray):
-        """Run one raw-in table step; returns its outputs packed for one
-        host transfer (``_pack``)."""
-        windows = torch.from_numpy(padded).to(self.device)
-        counts = torch.from_numpy(n_valid).to(self.device)
-        if self.clock is not None:
-            self.clock.start()
-        self._table, info = symed_receive_masked_chunk_table(
-            windows, counts, self.cfg, self._table,
-            digitize_every_k=self.digitize_every_k,
-            use_kernel=self.use_kernel,
-            mark=self.clock.mark if self.clock is not None else None)
-        return self._pack(info)
+        """Run one raw-in table step, one per block; returns its outputs
+        packed for one host transfer (``_pack``)."""
+        return self._step_blocks(symed_receive_masked_chunk_table,
+                                 (padded, n_valid))
 
     def _dispatch_pieces(self, *host_args: np.ndarray):
-        """Run one compressed-in table step on the padded ``(endpoints,
-        steps, n_valid, hello, t_seen)``; returns its outputs packed for one
-        host transfer (``_pack``)."""
-        args = [torch.from_numpy(a).to(self.device) for a in host_args]
-        if self.clock is not None:
-            self.clock.start()
-        self._table, info = symed_receive_masked_pieces_table(
-            *args, self.cfg, self._table,
-            digitize_every_k=self.digitize_every_k,
-            use_kernel=self.use_kernel,
-            mark=self.clock.mark if self.clock is not None else None)
-        return self._pack(info)
+        """Run one compressed-in table step, one per block, on the padded
+        ``(endpoints, steps, n_valid, hello, t_seen)``; returns its outputs
+        packed for one host transfer (``_pack``)."""
+        return self._step_blocks(symed_receive_masked_pieces_table,
+                                 host_args)
+
+    def _step_blocks(self, block_step, host_args):
+        """Stage each block's rows of the host arrays on its device, run
+        ``block_step`` on the block, and join the blocks' packed outputs on
+        the first device."""
+        n = self.capacity // len(self._blocks)
+        packed = []
+        for i, dev in enumerate(self.block_devices):
+            args = [torch.from_numpy(a[i * n: (i + 1) * n]).to(dev)
+                    for a in host_args]
+            if self.clock is not None:
+                self.clock.start()
+            self._blocks[i], info = block_step(
+                *args, self.cfg, self._blocks[i],
+                digitize_every_k=self.digitize_every_k,
+                use_kernel=self.use_kernel,
+                mark=self.clock.mark if self.clock is not None else None)
+            packed.append(self._pack(info).to(self.device))
+        self.totals["steps"] += 1
+        self._clock += 1
+        return packed[0] if len(packed) == 1 else torch.cat(packed)
 
     def _pack(self, info):
         """A table step's outputs in one int32 device tensor (``labels |
         endpoints bits | n_new | emitted | t_seen`` per slot)."""
         d = info["symbol_delta"]
-        packed = torch.cat([
+        return torch.cat([
             d["labels"], d["endpoints"].view(torch.int32),
             d["n_new"][:, None], d["emitted"].to(torch.int32)[:, None],
             info["t_seen"][:, None]], dim=1)
-        self.totals["steps"] += 1
-        self._clock += 1
-        return packed
 
     def _unpack(self, packed):
         """Copy one round's packed outputs to the host (the round's one
@@ -703,8 +781,9 @@ class StreamServer:
         out = None
         n_pieces = 0
         if sess.t_seen:  # a never-fed session has nothing to flush
-            sub = _map(lambda l: l[sess.slot], self._table)
-            res = symed_receive_finish(sub, self.cfg, with_delta=True)
+            sub = _map(lambda l: l[0], self._gather([sess.slot]))
+            res = symed_receive_finish(sub, self.cfg, with_delta=True,
+                                       use_kernel=self.use_kernel)
             out = {k: v.cpu().numpy() for k, v in res.items()
                    if k != "symbol_delta"}
             d = out["symbol_delta"] = {
@@ -786,8 +865,9 @@ class StreamServer:
         """Move one rung up the ladder, carrying all state (live slots keep
         their indices, the new upper part is blank)."""
         new_cap = self._ladder[self._ladder.index(self.capacity) + 1]
-        self._table = _map(lambda l, b: torch.cat([l, b], dim=0), self._table,
-                           self._blanks(new_cap - self.capacity))
+        grown = _map(lambda l, b: torch.cat([l.to(self.device), b], dim=0),
+                     self._table, self._blanks(new_cap - self.capacity))
+        self._blocks = self._split(grown)
         self._free.extend(range(self.capacity, new_cap))
         self.capacity = new_cap
         self.totals["grows"] += 1
@@ -815,8 +895,7 @@ class StreamServer:
             live = sorted(self._sessions.values(), key=lambda s: s.slot)
             perm = [s.slot for s in live]
             perm += sorted(self._free)[: target - len(perm)]
-            idx = torch.tensor(perm, dtype=torch.long, device=self.device)
-            self._table = _map(lambda l: l[idx], self._table)
+            self._blocks = self._split(self._gather(perm))
             for new_slot, sess in enumerate(live):
                 sess.slot = new_slot
             self._free = list(range(len(live), target))
@@ -840,12 +919,9 @@ class StreamServer:
         if not due:
             return
         t_start = time.perf_counter_ns()
-        idx = torch.tensor([s.slot for s in due], dtype=torch.long,
-                           device=self.device)
-        t = self._table
-        endpoints, steps, n_pieces, t0 = (
-            leaf.index_select(0, idx)
-            for leaf in (t.endpoints, t.steps, t.n_pieces, t.t0))
+        t = self._gather([s.slot for s in due])
+        endpoints, steps, n_pieces, t0 = (t.endpoints, t.steps, t.n_pieces,
+                                          t.t0)
         lens, incs = pieces_from_wire(endpoints, steps, n_pieces, t0)
         raws = [np.concatenate(s.raw) for s in due]
         by_len: Dict[int, List[int]] = {}
@@ -914,7 +990,10 @@ def _build_workload(args):
 
 def main(argv=None):
     from repro_torch.launch.cli import (
-        add_metrics_args, add_slot_table_args, add_symed_args)
+        add_devices_arg, add_metrics_args, add_slot_table_args,
+        add_symed_args)
+    from repro_torch.launch.fleet import fleet_data_mesh
+    from repro_torch.launch.mesh import describe_devices
     from repro_torch.obs import Observability
     from repro_torch.obs.export import start_exporter
     from repro_torch.workload import replay_trace
@@ -939,6 +1018,9 @@ def main(argv=None):
                          "(endpoints bitwise; every symbol on the CPU, 99%% "
                          "on cuda)")
     add_slot_table_args(ap)
+    add_devices_arg(
+        ap, help="table shards: host shards with --device cpu, round-robin "
+                 "over the cards with cuda; >1 shards the slot table")
     add_symed_args(ap)
     add_metrics_args(ap)
     ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
@@ -949,13 +1031,16 @@ def main(argv=None):
     window_cap = trace.window  # a recorded trace carries its own shape
     cfg = SymEDConfig(tol=args.tol, alpha=args.alpha, n_max=256, k_max=32,
                       len_max=256)
+    mesh = (fleet_data_mesh(args.devices, device=args.device)
+            if args.devices > 1 else None)
     obs = Observability(trace_capacity=65536)
     server = StreamServer(
         cfg, max_sessions=args.max_slots, window_cap=window_cap,
         digitize_every_k=args.digitize_every, dtw_every=args.dtw_every,
         evict_idle=args.evict, autoscale=args.autoscale,
         min_slots=args.min_slots, shrink_patience=args.shrink_patience,
-        seed=args.seed, pretrace=args.pretrace, obs=obs, device=args.device)
+        seed=args.seed, pretrace=args.pretrace, mesh=mesh, obs=obs,
+        device=args.device)
     exporter = start_exporter(obs, args.metrics_port)
     if exporter is not None:
         print(f"metrics exporter        : {exporter.url}/metrics")
@@ -963,7 +1048,9 @@ def main(argv=None):
     res = replay_trace(trace, cfg=cfg, server=server, verify=args.verify)
 
     rep = server.report(res.wall_seconds)
-    print(f"device                  : {server.device} "
+    print(f"devices / table shards  : {args.devices}")
+    print(f"shard devices           : "
+          f"{describe_devices(server.block_devices)} "
           f"(k-means kernel {'on' if server.use_kernel else 'off'})")
     print(f"slot table              : {args.max_slots} slots"
           f"{' (autoscaled)' if args.autoscale else ''}, "
@@ -1016,6 +1103,7 @@ def main(argv=None):
                   f"{args.metrics_linger:.0f}s for scrapes", flush=True)
             time.sleep(args.metrics_linger)
         exporter.close()
+    rep["fingerprint"] = res.fingerprint()
     return rep
 
 

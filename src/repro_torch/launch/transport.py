@@ -727,23 +727,29 @@ def _cfg(args):
 
 
 def _serve_main(args) -> int:
+    from repro_torch.launch.fleet import fleet_data_mesh
+    from repro_torch.launch.mesh import describe_devices
     from repro_torch.launch.stream import StreamServer
     from repro_torch.obs.export import start_exporter
 
+    mesh = (fleet_data_mesh(args.devices, device=args.device)
+            if args.devices > 1 else None)
     server = StreamServer(
         _cfg(args), max_sessions=args.max_slots, window_cap=args.window,
         digitize_every_k=args.digitize_every, evict_idle=args.evict,
         autoscale=args.autoscale, min_slots=args.min_slots,
         shrink_patience=args.shrink_patience, pretrace=args.pretrace,
-        seed=args.seed, device=args.device)
+        seed=args.seed, mesh=mesh, device=args.device)
     transport = TransportServer(server, host=args.host, port=args.port)
     exporter = start_exporter(server.obs, args.metrics_port)
     if exporter is not None:
         print(f"metrics exporter        : {exporter.url}/metrics",
               flush=True)
     print(f"listening on {transport.host}:{transport.port} "
-          f"(device={server.device} slots={args.max_slots}"
+          f"(devices={args.devices} slots={args.max_slots}"
           f"{' autoscale' if args.autoscale else ''})", flush=True)
+    print(f"shard devices           : "
+          f"{describe_devices(server.block_devices)}", flush=True)
     t0 = time.perf_counter()
     transport.serve(expect_sessions=args.expect_sessions)
     rep = server.report(time.perf_counter() - t0)
@@ -888,8 +894,8 @@ def _demo_main(args) -> int:
 
 def main(argv=None) -> int:
     from repro_torch.launch.cli import (
-        add_metrics_args, add_slot_table_args, add_symed_args,
-        validate_shared_args)
+        add_devices_arg, add_metrics_args, add_slot_table_args,
+        add_symed_args, validate_shared_args)
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     role = ap.add_mutually_exclusive_group()
@@ -919,6 +925,10 @@ def main(argv=None) -> int:
     ap.add_argument("--expect-sessions", type=int, default=None,
                     help="server: exit after this many sessions closed")
     add_slot_table_args(ap, max_slots=8)
+    add_devices_arg(
+        ap, help="server: table shards (host shards with --device cpu, "
+                 "round-robin over the cards with cuda; >1 shards the "
+                 "slot table)")
     add_symed_args(ap)
     add_metrics_args(ap)
     ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"),

@@ -11,6 +11,11 @@ recorded ``--trace`` jsonl) through the port's in-process ``StreamServer``
 1 on any SLO violation, 3 if ``--runs N`` replays disagree, 2 on bad
 flags.
 
+``--devices N`` (N > 1) shards the server's slot table over a data mesh of
+N shards (``repro_torch.launch.mesh``: host shards with ``--device cpu``,
+round-robin over the cards with ``cuda``); each scenario's table must
+divide over it.
+
 ``--out FILE`` writes the per-scenario artifact (schema
 ``bench_transport/v1``) to ``FILE``, and nothing is written without it.
 """
@@ -21,7 +26,8 @@ import json
 import sys
 import time
 
-from repro_torch.launch.cli import add_symed_args, validate_shared_args
+from repro_torch.launch.cli import (
+    add_devices_arg, add_symed_args, validate_shared_args)
 from repro_torch.workload import (
     SCENARIOS, Trace, Workload, check_slos, parse_slo_specs, replay_trace,
     scenario_seed,
@@ -72,6 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "the CPU, 99%% on cuda)")
     ap.add_argument("--out", default=None, metavar="FILE",
                     help=f"write the {BENCH_SCHEMA} artifact here")
+    add_devices_arg(ap)
     add_symed_args(ap)
     ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"),
                     help="where the server's table and the senders run")
@@ -91,10 +98,21 @@ def _resolve_scenarios(ap, args) -> list:
     return names
 
 
+def _check_mesh_fit(name: str, server_kw: dict, devices: int) -> None:
+    cap = int(server_kw.get("max_sessions", 8))
+    lo = server_kw.get("min_slots")
+    if cap % devices or (lo is not None and int(lo) % devices):
+        raise SystemExit(
+            f"scenario {name!r}: slot table (max_sessions={cap}, "
+            f"min_slots={lo}) must divide over --devices {devices}")
+
+
 def _run_scenario(name: str, trace, server_kw: dict, slos: dict, args,
-                  cfg) -> tuple:
+                  cfg, mesh) -> tuple:
     """Replay (possibly repeatedly); returns (bench_row, violations,
     determinism)."""
+    if mesh is not None:
+        server_kw = {**server_kw, "mesh": mesh}
     results = []
     for _ in range(max(args.runs, 1)):
         results.append(replay_trace(
@@ -206,10 +224,16 @@ def main(argv=None) -> int:
               f"{trace.digest()[:16]})")
         return 0
 
+    for name, _, server_kw, _ in targets:
+        _check_mesh_fit(name, server_kw, args.devices)
+
     from repro_torch.core.symed import SymEDConfig
+    from repro_torch.launch.fleet import fleet_data_mesh
 
     cfg = SymEDConfig(tol=args.tol, alpha=args.alpha, n_max=256, k_max=32,
                       len_max=256)
+    mesh = (fleet_data_mesh(args.devices, device=args.device)
+            if args.devices > 1 else None)
     rows = []
     n_violations = 0
     mismatch = False
@@ -220,7 +244,7 @@ def main(argv=None) -> int:
               + (f": {sc.description}" if sc else " (recorded trace)"),
               flush=True)
         row, violations, determinism = _run_scenario(
-            name, trace, server_kw, slos, args, cfg)
+            name, trace, server_kw, slos, args, cfg, mesh)
         rows.append(row)
         n_violations += len(violations)
         mismatch = mismatch or determinism == "MISMATCH"
@@ -232,6 +256,7 @@ def main(argv=None) -> int:
             "config": {
                 "tol": args.tol, "alpha": args.alpha, "seed": args.seed,
                 "rate": args.rate, "device": args.device,
+                "devices": args.devices,
                 "runs": args.runs, "transport": int(args.transport),
             },
             "rows": rows,

@@ -435,7 +435,9 @@ def replay_trace(trace: Trace, *, cfg=None, server=None,
     ``server`` reuses a caller-built ``StreamServer`` (the stream CLI path:
     its obs wiring stays in charge, and it sets the device); otherwise one
     is constructed from ``server_kw`` (scenario defaults) with
-    ``window_cap=trace.window`` on ``device`` (``cuda`` unless ``"cpu"``).
+    ``window_cap=trace.window`` on ``device`` (``cuda`` unless ``"cpu"``);
+    a ``"mesh"`` in ``server_kw`` shards its slot table (``device``, if
+    given, must name the mesh's devices' kind).
     """
     from repro_torch.data.synthetic import make_fleet
 

@@ -5,21 +5,26 @@ before any torch work.  The messages are pinned here letter for letter;
 where JAX is installed each is also held against the reference's parser,
 run in this process.  The stream CLI's trace-driven runs print the
 reference's ``stream_summary`` line and an ``obs_summary`` line with the
-reference's keys; the transport's recorder flags reach its server."""
+reference's keys; the transport's recorder flags reach its server.
+``--devices`` shards the slot table (stream, transport, workload) or the
+fleet slab (``repro_torch.launch.fleet``): host shards on the CPU, and the
+counters and fingerprint do not depend on it."""
 import json
 import sys
 import warnings
 
 import pytest
 
+from repro_torch.launch.fleet import main as port_fleet_main
 from repro_torch.launch.stream import main as port_main
 from repro_torch.launch.transport import main as port_transport_main
 
 try:
+    from repro.launch.fleet import main as reference_fleet_main
     from repro.launch.stream import main as reference_main
     from repro.launch.transport import main as reference_transport_main
 except ImportError:
-    reference_main = reference_transport_main = None
+    reference_main = reference_transport_main = reference_fleet_main = None
 
 # (flags, the message after "error: ")
 CASES = {
@@ -52,6 +57,11 @@ CASES = {
                            "--metrics-port must be in [0, 65535], got 70000"),
     "metrics-linger -1": (["--metrics-linger", "-1"],
                           "--metrics-linger must be >= 0, got -1.0"),
+    "devices 0": (["--devices", "0"], "--devices must be >= 1, got 0"),
+    "max-slots over devices": (["--devices", "3"],
+                               "--max-slots 4 must divide over --devices 3"),
+    "min-slots over devices": (["--devices", "2", "--min-slots", "3"],
+                               "--min-slots 3 must divide over --devices 2"),
 }
 
 # the transport CLI's (its --max-slots defaults to 8, its --length to 256)
@@ -78,6 +88,8 @@ TRANSPORT_CASES = {
                         "--metrics-port must be in [0, 65535], got -1"),
     "metrics-linger -2": (["--metrics-linger", "-2"],
                           "--metrics-linger must be >= 0, got -2.0"),
+    "devices 3": (["--serve", "--devices", "3"],
+                  "--max-slots 8 must divide over --devices 3"),
 }
 
 
@@ -123,18 +135,23 @@ def test_transport_same_message_as_the_reference(case, capsys, monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--devices", "2"]])
 def test_transport_rejects_flags_of_unported_parts(flags, capsys):
-    """Flags of the sharded table are not accepted quietly."""
-    message = _error(lambda: port_transport_main(flags), capsys)
-    assert message == f"unrecognized arguments: {' '.join(flags)}"
+    """The sharded table is ported: ``--devices`` is taken, and a value
+    the table does not divide over is refused with the reference's
+    message."""
+    message = _error(lambda: port_transport_main(
+        [*flags, "--max-slots", "3", "--min-slots", "2"]), capsys)
+    assert message == "--max-slots 3 must divide over --devices 2"
 
 
 @pytest.mark.parametrize("cli", ["stream", "workload"])
 def test_devices_unrecognized_until_the_fleet_is_ported(cli, capsys):
+    """The fleet is ported: ``--devices`` is a flag of both CLIs, checked
+    with the reference's message."""
     from repro_torch.workload.__main__ import main as workload_main
 
     run = {"stream": port_main, "workload": workload_main}[cli]
-    message = _error(lambda: run(["--devices", "2"]), capsys)
-    assert message == "unrecognized arguments: --devices 2"
+    message = _error(lambda: run(["--devices", "0"]), capsys)
+    assert message == "--devices must be >= 1, got 0"
 
 
 def _serve(flags, tmp_path, capsys):
@@ -280,3 +297,138 @@ def test_new_flags_reach_the_server(capsys):
                      "--digitize-every", "2", "--shrink-patience", "1"])
     assert int(rep["opened"]) == int(rep["closed"]) == 3
     assert "stream_summary opened=3 closed=3" in capsys.readouterr().out
+
+
+def test_stream_cli_devices_invariance(capsys):
+    """``--devices 2`` (two host shards of the slot table) gives the
+    ``stream_summary`` line, the counters and the fingerprint of
+    ``--devices 1``, and prints the reference's ``devices / table shards``
+    line."""
+    flags = ["--device", "cpu", "--sessions", "3", "--length", "64",
+             "--window", "32", "--workload", "flash_crowd", "--max-slots",
+             "4", "--min-slots", "2", "--autoscale", "--verify"]
+    outs, reps = [], []
+    for devices in ("1", "2"):
+        reps.append(port_main([*flags, "--devices", devices]))
+        outs.append(capsys.readouterr().out)
+    assert _lines(outs[0], "stream_summary ") == \
+        _lines(outs[1], "stream_summary ")
+    assert reps[0]["fingerprint"] == reps[1]["fingerprint"]
+    assert "devices / table shards  : 2" in outs[1].splitlines()
+    assert "delta equivalence       : OK (3 sessions)" in outs[1]
+
+# ----------------------------------------------------------- fleet CLI
+
+
+def _parse_fleet_stdout(stdout: str) -> dict:
+    """The layout-invariant telemetry totals of a fleet CLI report."""
+    vals = {}
+    for line in stdout.splitlines():
+        name, _, rest = line.partition(":")
+        name, rest = name.strip(), rest.strip()
+        first = rest.split()[0].replace(",", "") if rest else ""
+        if name == "fleet pieces":
+            vals["pieces"] = int(first)
+        elif name == "fleet wire-in bytes":
+            vals["wire_bytes"] = int(first)
+        elif name == "fleet wire-out bytes":
+            vals["wire_out_bytes"] = int(first)
+        elif name == "fleet raw bytes":
+            vals["raw_bytes"] = int(first)
+        elif name == "compression rate":
+            vals["compression_rate"] = float(first)
+    return vals
+
+
+def _port_cli(capsys, *argv):
+    port_fleet_main([*argv, "--device", "cpu"])
+    return capsys.readouterr().out
+
+
+def test_fleet_cli_telemetry_is_layout_invariant(capsys, monkeypatch):
+    """``--devices 1/4/8`` and a 2 x 2 pod x data grid report the same
+    totals (the grid digitizes every window: 4 B more per extra frame), and
+    they are the reference CLI's."""
+    base = ["--streams", "8", "--length", "64", "--chunk", "16"]
+    runs = {name: _parse_fleet_stdout(_port_cli(capsys, *base, *extra))
+            for name, extra in (("devices1", ["--devices", "1"]),
+                                ("devices4", ["--devices", "4"]),
+                                ("devices8", ["--devices", "8"]),
+                                ("pods2x2", ["--devices", "4", "--pods", "2",
+                                             "--digitize-every", "1"]))}
+    ref = runs["devices1"]
+    assert set(ref) == {"pieces", "wire_bytes", "raw_bytes",
+                        "wire_out_bytes", "compression_rate"}
+    for name, vals in runs.items():
+        vals = dict(vals)
+        if name == "pods2x2":
+            extra_frames = 8 * (64 // 16)
+            assert (vals.pop("wire_out_bytes")
+                    == ref["wire_out_bytes"] + 4 * extra_frames), name
+            assert vals == {k: v for k, v in ref.items()
+                            if k != "wire_out_bytes"}, name
+            continue
+        assert vals == ref, name
+    if reference_fleet_main is not None:
+        monkeypatch.setattr(sys, "argv", ["fleet", *base, "--devices", "1"])
+        reference_fleet_main()
+        assert _parse_fleet_stdout(capsys.readouterr().out) == ref
+
+
+def test_fleet_cli_prints_the_reference_lines(capsys):
+    out = _port_cli(capsys, "--streams", "4", "--length", "64", "--devices",
+                    "2", "--reconstruct")
+    lines = out.splitlines()
+    assert lines[0] == "devices / data shards   : 2"
+    assert lines[1] == "shard devices           : 1 distinct: cpu (host)"
+    assert lines[2] == "mesh layout             : data = 2"
+    assert lines[3] == "ingestion               : whole-stream"
+    assert any(l.startswith("mean DTW err (symbols)  : ") for l in lines)
+
+
+def test_fleet_cli_default_shards(capsys, monkeypatch):
+    """Without ``--devices``: 8 host shards with ``--device cpu`` (the
+    reference's dry run), one shard per card with cuda (the reference's
+    ``jax.device_count()``)."""
+    import repro_torch.launch.fleet as tfleet
+
+    out = _port_cli(capsys, "--streams", "8", "--length", "64")
+    assert out.splitlines()[0] == "devices / data shards   : 8"
+    seen = []
+
+    def stop(n_pods, n_dev, *, device):
+        seen.append((n_pods, n_dev, device))
+        raise RuntimeError("stop before the mesh")
+
+    monkeypatch.setattr(tfleet, "device_count", lambda device=None: 1)
+    monkeypatch.setattr(tfleet, "resolve_fleet_mesh", stop)
+    with pytest.raises(RuntimeError, match="stop before the mesh"):
+        port_fleet_main(["--streams", "8", "--length", "64"])
+    assert seen == [(1, 1, "cuda")]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--streams", "4", "--length", "128", "--chunk", "256", "--devices", "1"],
+    ["--streams", "4", "--length", "128", "--tol", "-0.5", "--devices", "1"],
+    ["--digitize-every", "2", "--devices", "1"],
+    ["--devices", "4", "--pods", "3"],
+    ["--pods", "0"],
+    ["--chunk", "-1"],
+    ["--devices", "0"],
+    ["--streams", "0"],
+])
+def test_fleet_cli_rejects_as_the_reference(argv, capsys, monkeypatch):
+    """Exit 2 and the reference parser's message, before any work."""
+    if reference_fleet_main is None:
+        pytest.skip("needs the JAX reference")
+    errs = []
+    for run in (lambda: port_fleet_main([*argv, "--device", "cpu"]),
+                reference_fleet_main):
+        monkeypatch.setattr(sys, "argv", ["fleet", *argv])
+        with pytest.raises(SystemExit) as info:
+            run()
+        assert info.value.code == 2
+        errs.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert errs[0] == errs[1]
+
+

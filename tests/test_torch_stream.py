@@ -297,6 +297,169 @@ class TestDtwMonitor:
             StreamServer(CFG, dtw_every=-1, device="cpu")
 
 
+def _mesh(n, device="cpu"):
+    from repro_torch.launch.fleet import fleet_data_mesh
+
+    return fleet_data_mesh(n, device=device)
+
+
+def _sharded_pair(n=4, device="cpu", **kw):
+    """An unsharded port server and one whose table is in ``n`` blocks."""
+    kw = dict(window_cap=WINDOW_CAP, device=device, **kw)
+    return (StreamServer(CFG, **kw),
+            StreamServer(CFG, mesh=_mesh(n, device), **kw))
+
+
+def _pieces(ts, width):
+    """A compressed-in session's frames: the sender's pieces per window of
+    ``width`` points, then its trailing flush (``step = t_seen``)."""
+    from repro_torch.core.compress import compressor_finalize, pieces_on_wire
+    from repro_torch.core.symed import symed_encode_chunk
+
+    frames, state = [], None
+    for c in range(0, len(ts), width):
+        state, ev = symed_encode_chunk(ts[c: c + width], CFG, state,
+                                       device="cpu")
+        e, st = pieces_on_wire(ev, c)
+        frames.append({"endpoints": e, "steps": st,
+                       "t_seen": min(c + width, len(ts)), "t0": ts[0]})
+    tail = compressor_finalize(state)
+    if bool(tail.emit):
+        frames.append({"endpoints": [float(tail.endpoint)],
+                       "steps": [len(ts)], "t_seen": len(ts), "t0": ts[0]})
+    return frames
+
+
+class TestShardedTable:
+    """``StreamServer(mesh=...)``: the table in blocks of host shards,
+    frame by frame against the unsharded port server, bitwise."""
+
+    def test_interleaved_sessions_frame_by_frame(self):
+        rng = np.random.default_rng(540)
+        streams = [make_stream(rng, 128, kind) for kind in
+                   ("mixed", "sine", "walk", "mixed", "walk")]
+        servers = _sharded_pair(max_sessions=8, digitize_every_k=2, seed=1)
+        _drive(servers, streams, rng, opens=[0, 0, 1, 2, 2],
+               close_order=["s4", "s2", "s0", "s3", "s1"])
+        assert servers[1].totals["steps"] == servers[0].totals["steps"] > 0
+
+    def test_eviction_frame_by_frame(self):
+        rng = np.random.default_rng(541)
+        streams = [make_stream(rng, 96, "mixed") for _ in range(6)]
+        servers = _sharded_pair(max_sessions=4, evict_idle=True, seed=3)
+        _drive(servers, streams, rng, opens=[0, 0, 1, 1, 2, 4],
+               close_order=[f"s{i}" for i in range(5, -1, -1)])
+        assert servers[1].totals["evicted"] == 2
+
+    def test_autoscale_across_blocks_frame_by_frame(self):
+        """``min_slots`` defaults to the mesh's 4 shards; the ladder 4 -> 8
+        -> 16 re-splits the table at each rung (live slots move between
+        blocks) and back down as sessions close."""
+        rng = np.random.default_rng(542)
+        streams = [make_stream(rng, 80, "walk") for _ in range(10)]
+        kw = dict(window_cap=WINDOW_CAP, device="cpu", max_sessions=16,
+                  autoscale=True, shrink_patience=1, seed=5)
+        flat = StreamServer(CFG, min_slots=4, **kw)
+        sharded = StreamServer(CFG, mesh=_mesh(4), pretrace=True, **kw)
+        assert sharded.min_slots == 4 and sharded.capacity == 4
+        _drive((flat, sharded), streams, rng, opens=[0] * 9 + [3],
+               close_order=[f"s{i}" for i in (0, 2, 4, 6, 8, 1, 3, 5, 7, 9)])
+        assert sharded.totals["grows"] == 2
+        assert sharded.totals["shrinks"] == flat.totals["shrinks"] >= 2
+
+    def test_pieces_in_and_raw_in_sessions_frame_by_frame(self):
+        rng = np.random.default_rng(543)
+        raw = [make_stream(rng, 96, kind) for kind in ("mixed", "sine")]
+        comp = [make_stream(rng, 96, kind) for kind in ("walk", "mixed")]
+        frames = [_pieces(ts, 24) for ts in comp]
+        servers = _sharded_pair(max_sessions=4, seed=7)
+        for srv in servers:
+            for i in range(2):
+                srv.open(f"r{i}")
+                srv.open(f"p{i}")
+        for r in range(max(len(f) for f in frames)):
+            raw_batch = {f"r{i}": raw[i][24 * r: 24 * (r + 1)]
+                         for i in range(2) if 24 * r < len(raw[i])}
+            pieces_batch = {f"p{i}": frames[i][r] for i in range(2)
+                            if r < len(frames[i])}
+            for batch, ingest in ((raw_batch, "ingest_many"),
+                                  (pieces_batch, "ingest_pieces_many")):
+                if batch:
+                    a, b = (getattr(srv, ingest)(batch) for srv in servers)
+                    for sid in batch:
+                        _assert_delta_equal(a[sid], b[sid], f"{r} {sid}")
+        for sid in ("r0", "p0", "r1", "p1"):
+            _assert_close_equal(servers[0].close(sid), servers[1].close(sid),
+                                sid)
+        assert servers[0].totals == servers[1].totals
+
+    def test_dtw_monitor_readings(self):
+        rng = np.random.default_rng(544)
+        streams = [make_stream(rng, 120, kind) for kind in
+                   ("mixed", "walk", "sine")]
+        servers = _sharded_pair(max_sessions=4, dtw_every=2)
+        for srv in servers:
+            for i in range(3):
+                srv.open(f"s{i}")
+        for c in range(0, 120, 20):
+            batch = {f"s{i}": streams[i][c: c + 20] for i in range(3)}
+            for srv in servers:
+                srv.ingest_many(batch)
+            for i in range(3):
+                a, b = (srv.session_stats(f"s{i}")["dtw"] for srv in servers)
+                assert a == b and (a is not None) == (c >= 20), (c, i)
+        assert servers[1].monitor["dtw_readings"] == \
+            servers[0].monitor["dtw_readings"] == 9
+
+    @pytest.mark.parametrize("kw", [dict(max_sessions=6),
+                                    dict(max_sessions=8, min_slots=2),
+                                    dict(max_sessions=8, min_slots=9),
+                                    dict(max_sessions=4, min_slots=0)])
+    def test_constructor_messages_match_the_reference(self, kw):
+        """A table that does not divide over a 4-device mesh: the
+        reference's checks, in its order, with its messages."""
+        import types
+
+        fake = types.SimpleNamespace(axis_names=("data",),
+                                     devices=np.empty((4,), dtype=object))
+        msgs = []
+        for make in (lambda: JaxServer(JCFG, mesh=fake, obs=False, **kw),
+                     lambda: StreamServer(CFG, mesh=fake, device="cpu",
+                                          **kw)):
+            with pytest.raises(ValueError) as info:
+                make()
+            msgs.append(str(info.value))
+        assert msgs[0] == msgs[1]
+
+    def test_device_must_name_the_mesh_kind(self, monkeypatch):
+        with pytest.raises(ValueError, match="does not name the mesh"):
+            StreamServer(CFG, max_sessions=4, mesh=_mesh(2), device="cuda")
+        server = StreamServer(CFG, max_sessions=4, mesh=_mesh(2))
+        assert server.device == torch.device("cpu")
+        assert server.min_slots == 2 and len(server.block_devices) == 2
+
+
+@pytest.mark.cuda
+def test_two_blocks_on_the_card_frame_by_frame():
+    """Two blocks on one card against one block: n_new exact, endpoints
+    bitwise, every symbol and DTW reading equal (the Lloyd kernel is one
+    CTA per slot, so a slot's labels do not depend on its block)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.kernels.kmeans import kmeans_lloyd_cuda
+
+    name = torch.cuda.get_device_name()
+    rng = np.random.default_rng(545)
+    streams = [make_stream(rng, 128, kind) for kind in
+               ("mixed", "sine", "walk")]
+    before = kmeans_lloyd_cuda.launches
+    servers = _sharded_pair(2, "cuda", max_sessions=4, dtw_every=2, seed=2)
+    _drive(servers, streams, rng, opens=[0, 0, 1],
+           close_order=["s2", "s0", "s1"])
+    assert kmeans_lloyd_cuda.launches > before, name
+    assert servers[1].block_devices == [torch.device("cuda", 0)] * 2, name
+
+
 def test_masked_chunk_per_slot():
     """One slot's state through ``symed_receive_masked_chunk`` (ragged
     windows, an idle window, the seeding one) and the closing frame."""
@@ -369,6 +532,39 @@ class TestPortContract:
             np.testing.assert_array_equal(res["out"][name], val.numpy(),
                                           err_msg=name)
 
+    def test_close_digitizes_as_the_rounds_do(self, monkeypatch):
+        """``close`` hands the server's ``use_kernel`` to
+        ``symed_receive_finish`` (the card's closes run the Lloyd kernel);
+        on the CPU the flag runs the plain version, so the closes agree
+        (the kernel's labels are 0 past the pieces, the plain loop's are
+        not)."""
+        import repro_torch.launch.stream as tstream
+
+        seen = []
+        finish = tstream.symed_receive_finish
+
+        def spy(*args, **kw):
+            seen.append(kw.get("use_kernel"))
+            return finish(*args, **kw)
+
+        monkeypatch.setattr(tstream, "symed_receive_finish", spy)
+        ts = make_stream(np.random.default_rng(41), 120)
+        closed = []
+        for use_kernel in (False, True):
+            server = StreamServer(CFG, max_sessions=2, window_cap=WINDOW_CAP,
+                                  use_kernel=use_kernel, device="cpu")
+            server.open("s", key=np.array([0, 5], np.uint32))
+            for pos in range(0, 120, 30):
+                server.ingest("s", ts[pos: pos + 30])
+            closed.append(server.close("s"))
+        assert seen == [False, True]
+        plain, krn = closed
+        n = plain["n_pieces"]
+        assert n > CFG.k_min and not krn["out"]["symbols"][n:].any()
+        for res in closed:
+            res["out"]["symbols"] = res["out"]["symbols"][:n]
+        _assert_close_equal(plain, krn, "use_kernel on the CPU")
+
     def test_cuda_entry_point_raises_without_cuda(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -408,15 +604,18 @@ def test_totals_have_the_reference_keys():
 
 def test_port_imports_no_jax():
     """``import repro_torch``, ``repro_torch.core``, the transport, the
-    recorder and the workload harness, one CPU service round with the DTW
-    monitor on, one compressed-in round and one replay of a scenario leave
-    jax and every module of the JAX package out of ``sys.modules``."""
+    recorder, the workload harness, the fleet runtime and the mesh
+    builders, one CPU service round with the DTW monitor on, one
+    compressed-in round, one replay of a scenario and one sharded fleet
+    run leave jax and every module of the JAX package out of
+    ``sys.modules``."""
     code = (
         "import sys, numpy as np\n"
         "import repro_torch, repro_torch.core\n"
         "import repro_torch.launch.transport\n"
         "import repro_torch.obs, repro_torch.obs.export\n"
         "import repro_torch.workload, repro_torch.workload.__main__\n"
+        "import repro_torch.launch.fleet, repro_torch.launch.mesh\n"
         "from repro_torch.launch.stream import StreamServer\n"
         "from repro_torch.core.symed import SymEDConfig\n"
         "cfg = SymEDConfig(n_max=32, k_max=4, len_max=16, lloyd_iters=2)\n"
@@ -436,6 +635,12 @@ def test_port_imports_no_jax():
         "res = replay_trace(wl.trace(), cfg=cfg, server_kw=wl.server_kw(),"
         " device='cpu', verify=True)\n"
         "assert res.verified == 2 and res.latency['count'] > 0, res\n"
+        "from repro_torch.core import prng\n"
+        "from repro_torch.launch.fleet import fleet_data_mesh, run_fleet\n"
+        "out, tele = run_fleet(np.sin(np.arange(128, dtype=np.float32)"
+        ".reshape(2, 64)), cfg, prng.key(0), fleet_data_mesh(2, "
+        "device='cpu'), chunk_len=32, digitize_every_k=1)\n"
+        "assert float(tele['streams']) == 2 and float(tele['pieces']) > 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print('BAD', bad)\n"

@@ -240,6 +240,52 @@ def test_cli_exit_3_when_runs_disagree(monkeypatch, capsys):
     assert "determinism=MISMATCH" in capsys.readouterr().out
 
 
+def _summary(text):
+    """The ``workload_summary`` line without its wall-clock fields."""
+    (line,) = [l for l in text.splitlines()
+               if l.startswith("workload_summary ")]
+    return [f for f in line.split()
+            if not f.startswith(("p50_ms=", "p99_ms=", "p999_ms=",
+                                 "wall_s="))]
+
+
+def test_cli_devices_gives_the_same_replay(capsys):
+    """``--devices 2`` shards the server's table over two host shards: the
+    same delta hash, counters and verified sessions as ``--devices 1``."""
+    flags = SMALL + ["--verify", "--no-slos"]
+    summaries = []
+    for devices in ("1", "2"):
+        assert workload_main(flags + ["--devices", devices]) == 0
+        summaries.append(_summary(capsys.readouterr().out))
+    assert summaries[0] == summaries[1]
+    assert "verified=2" in summaries[1]
+
+
+@pytest.mark.parametrize("server_kw,devices,fits", [
+    ({"max_sessions": 8}, 3, False),
+    ({"max_sessions": 8, "min_slots": 2}, 4, False),
+    ({}, 16, False),
+    ({"max_sessions": 8, "min_slots": 4}, 4, True)])
+def test_check_mesh_fit_as_the_reference(server_kw, devices, fits):
+    """A scenario's table that does not divide over ``--devices`` stops
+    the CLI with the reference's text; one that divides passes."""
+    from repro_torch.workload.__main__ import _check_mesh_fit
+
+    if JaxConfig is None:
+        pytest.skip("needs the JAX reference")
+    from repro.workload.__main__ import _check_mesh_fit as ref_fit
+
+    msgs = []
+    for fit in (_check_mesh_fit, ref_fit):
+        try:
+            fit("flash_crowd", server_kw, devices)
+            msgs.append(None)
+        except SystemExit as e:
+            msgs.append(str(e))
+    assert msgs[0] == msgs[1]
+    assert (msgs[0] is None) == fits
+
+
 @needs_jax
 def test_cli_dump_trace(tmp_path, capsys):
     path = tmp_path / "t.jsonl"
