@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of SymED on one GPU and check it.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``.  Nine phases,
+Run from the root of a checkout: ``python3 chip_smoke.py``.  Ten phases,
 each raising on failure:
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
@@ -96,10 +96,34 @@ each raising on failure:
    endpoints and pieces bitwise, DTW readings equal, at least 99% of
    symbols equal, and the closes through the Lloyd kernel.  Each part
    prints its wall time, host syncs and kernel launches, counted from 0
-   just before it.
+   just before it;
+10. the ABBA baseline and the LM serving path: (a) ``abba_encode`` on the
+   card (its k-search through the Lloyd kernel) on the five families of
+   ``make_dataset`` at the Fig. 5 settings (4 series x 1000 points, seed
+   11, ``n_max=256``, ``len_max=256``, ``k_max=64``) at tol 0.5, 0.1 and
+   1.9, each tol's reconstructions scored in one DTW kernel launch, against
+   the CPU port (run in the worker): lengths, incs, n_pieces, mean and std
+   bitwise, at least 99% of labels equal, DTW within 1e-4 relative where
+   the labels agree; its launches, host syncs and wall time printed; (b)
+   ``python -m repro_torch.launch.serve --full`` (olmoe-1b-7b, bf16, the
+   CLI's defaults) exits 0 with its three ``[serve]`` lines; (c) the 8
+   attention archs at full width in bf16 (olmoe-1b-7b at full depth, the
+   others cut to one superblock plus the tail and one encoder block): two
+   runs from one seed bitwise equal, tokens in range, logits finite,
+   ``count_params`` the reference's, and the teacher-forcing contract of
+   ``tests/test_models.py`` within ``TF_BOUND`` x max(max|logits|, 1);
+   olmoe-1b-7b's peak memory printed; one of olmoe-1b-7b's MoE layers at
+   full width on 4 x 8192 tokens (8 groups of 4096, run one after the
+   other): finite, the first group as the layer on that group alone (at
+   most 1% of its outputs differ: the router's f32 product may sum in
+   another order at another row count), the memory the call adds under
+   ``MOE_GROUPS_BYTES``; (d) the 8 reduced configs and one int8-cache
+   variant in f32 on the card against the CPU port on the same weights:
+   logits within 1e-4 x max(max|cpu|, 1), greedy tokens equal.
 
-The last two lines are a JSON summary of every kernel and
-``{"ok": true, "device": {...}}``.
+The last two lines are a JSON summary of every kernel (``launches`` from
+phase 6, ``launches_abba`` from phase 10 (a)) and ``{"ok": true,
+"device": {...}}``.
 
 ``python3 chip_smoke.py --fleet-depths 1024,1280`` builds the kernels and
 runs only phase 9, (a)-(b) once at each depth (points per stream) and
@@ -178,6 +202,29 @@ SCALE_CHECKED = 8  # of its sessions held against symed_encode
 # sessions, SHARD_POINTS points each, in SHARD_BLOCKS blocks
 FLEET_POINTS, FLEET_CHUNK, FLEET_EVERY = 1280, 256, 2
 SHARD_POINTS, SHARD_BLOCKS, SHARD_DTW_EVERY = 512, 4, 4
+# phase 10: ABBA at the Fig. 5 benchmark's settings (benchmarks/common.py
+# and fig5_suite.py: 4 series x 1000 points of each family, seed 11), the
+# serve CLI's defaults, the teacher-forcing bound in bf16 (fixed before the
+# first run on the card), and the reference's parameter counts of the
+# attention architectures (tests/test_torch_models.py holds them against
+# repro.models.count_params)
+ABBA_SERIES, ABBA_POINTS, ABBA_SEED = 4, 1000, 11
+ABBA_KW = dict(n_max=256, len_max=256, k_max=64, scl=1.0)
+ABBA_TOLS = (0.5, 0.1, 1.9)
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 32, 16
+TF_STEPS, TF_BOUND = 4, 5e-2
+REF_PARAM_COUNTS = {
+    "codeqwen1.5-7b": 8190038016, "command-r-35b": 30283538432,
+    "gemma3-27b": 27008319744, "mixtral-8x7b": 46702792704,
+    "nemotron-4-15b": 15628376064, "olmoe-1b-7b": 6919096320,
+    "paligemma-3b": 2508662784, "whisper-small": 238143744,
+}
+SERVE_ARCH = "olmoe-1b-7b"  # the serve CLI's default, at full depth
+KV_QUANT_ARCH = "gemma3-27b"  # (d)'s int8-cache variant: ring and global
+# (c)'s MoE layer on 4 x 8192 tokens: one group of 4096 needs about 2.5 GB
+# (its (g, e, cap) combine in f32, the bf16 dispatch, the experts'
+# buffers); all 8 groups at once would need tens of GB
+MOE_GROUPS_SHAPE, MOE_GROUPS_BYTES = (4, 8192), 8 * 2**30
 LLOYD_ITERS = 10  # the paper's lloyd_iters
 LLOYD_EXTRA = [(2, 30000, 2, 8)]  # pieces too many for shared memory
 
@@ -780,11 +827,15 @@ def _compare(a, b, what):
 
 
 def _paper_cfg():
-    """The paper's settings (the reference's ``configs/symed_paper.py``)."""
+    """The paper's settings, ``repro_torch.configs.PAPER_SYMED``."""
+    from repro_torch.configs import PAPER_SYMED
     from repro_torch.core.symed import SymEDConfig
 
-    return SymEDConfig(tol=0.5, alpha=0.01, scl=1.0, k_min=3, k_max=100,
+    want = SymEDConfig(tol=0.5, alpha=0.01, scl=1.0, k_min=3, k_max=100,
                        n_max=512, len_max=512)
+    if PAPER_SYMED != want:
+        raise AssertionError(f"PAPER_SYMED is {PAPER_SYMED}, not {want}")
+    return PAPER_SYMED
 
 
 def _small_case():
@@ -870,10 +921,12 @@ def _zoo_reference():
 
 def _cpu_worker(conn) -> None:
     """Worker process: send ``("ok", _cpu_reference())``, then
-    ``("ok", _zoo_reference())``, or the failure."""
+    ``("ok", _zoo_reference())`` and ``("ok", _abba_reference())``, or the
+    failure."""
     try:
         conn.send(("ok", _cpu_reference()))
         conn.send(("ok", _zoo_reference()))
+        conn.send(("ok", _abba_reference()))
     except BaseException:
         conn.send(("error", traceback.format_exc()))
     finally:
@@ -1828,6 +1881,366 @@ def sharded_table_phase(torch, dev):
           f"symbols {agree}/{total} (the closing frames' too)", flush=True)
 
 
+def _abba_runs(torch, dev):
+    """Phase 10 (a)'s streams through ``abba_encode`` on ``dev``, each tol's
+    20 reconstructions scored in one ``ops.dtw`` call (the DTW kernel on
+    the card).  Returns, per tol, every stream's fields and its score."""
+    import numpy as np
+
+    from repro_torch.core.abba import abba_encode
+    from repro_torch.core.reconstruct import reconstruct_from_symbols
+    from repro_torch.data.synthetic import FAMILIES, make_dataset
+    from repro_torch.kernels import ops
+
+    out = {}
+    for tol in ABBA_TOLS:
+        fields, raws, recs = [], [], []
+        for family in FAMILIES:
+            for row in make_dataset(family, ABBA_SERIES, ABBA_POINTS,
+                                    seed=ABBA_SEED):
+                res = abba_encode(row, tol=tol, device=dev, **ABBA_KW)
+                t0 = torch.tensor(np.float32((row[0] - float(res.mean))
+                                             / float(res.std)), device=dev)
+                rec = reconstruct_from_symbols(res.labels, res.centers,
+                                               res.n_pieces, t0, len(row))
+                recs.append(rec * res.std + res.mean)
+                raws.append(torch.from_numpy(row).to(dev))
+                fields.append({k: v.cpu().numpy()
+                               for k, v in res._asdict().items()})
+        scores = ops.dtw(torch.stack(raws), torch.stack(recs))
+        out[tol] = {"fields": fields, "dtw": scores.cpu().numpy()}
+    return out
+
+
+def _abba_reference():
+    """The CPU port's side of phase 10 (a)."""
+    import torch
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    t0 = time.perf_counter()
+    out = {"runs": _abba_runs(torch, "cpu")}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def abba_phase(torch, dev, cpu):
+    """Phase 10 (a): ABBA on the card against the CPU port.  Returns the
+    kernels' launches, counted from 0 just before it."""
+    import numpy as np
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    runs = _abba_runs(torch, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _launches()
+    for tol in ABBA_TOLS:
+        g, c = runs[tol], cpu["runs"][tol]
+        agree = total = same_streams = 0
+        rel = 0.0
+        for i, (fg, fc) in enumerate(zip(g["fields"], c["fields"])):
+            for key in ("lengths", "incs", "n_pieces", "mean", "std"):
+                if not np.array_equal(fg[key], fc[key]):
+                    raise AssertionError(f"abba tol {tol} stream {i}: {key} "
+                                         "differs from the CPU port")
+            n = int(fc["n_pieces"])
+            eq = fg["labels"][:n] == fc["labels"][:n]
+            agree += int(eq.sum())
+            total += n
+            if eq.all():
+                same_streams += 1
+                a, b = float(g["dtw"][i]), float(c["dtw"][i])
+                rel = max(rel, abs(a - b) / max(abs(b), 1e-30))
+        if agree < 0.99 * total:
+            raise AssertionError(f"abba tol {tol}: labels {agree}/{total}")
+        if rel > 1e-4:
+            raise AssertionError(f"abba tol {tol}: DTW differs by {rel:.3e} "
+                                 "relative where labels agree")
+        ks = [int(f["k"]) for f in g["fields"]]
+        print(f"abba tol {tol}: {len(ks)} streams, lengths/incs/n_pieces/"
+              f"mean/std bitwise, labels {agree}/{total}, k {min(ks)}..."
+              f"{max(ks)}; DTW of the {same_streams} streams whose labels "
+              f"agree within {rel:.3e} relative", flush=True)
+    if counts["kmeans_lloyd"] <= 0 or counts["dtw"] != len(ABBA_TOLS):
+        raise AssertionError(f"abba on the card: launches {counts}")
+    print(f"abba on the card: {wall:.2f} s for {3 * len(runs[0.5]['fields'])}"
+          f" encodes, Lloyd launches {counts['kmeans_lloyd']}, DTW launches "
+          f"{counts['dtw']}, host syncs {counts['host_syncs']}", flush=True)
+    return counts
+
+
+def serve_cli_phase():
+    """Phase 10 (b): ``python -m repro_torch.launch.serve --full``."""
+    import re
+
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join(
+               [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--full"],
+        cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[serve]")]
+    print("\n".join("serve | " + ln for ln in proc.stdout.splitlines()),
+          flush=True)
+    if proc.returncode != 0 or len(lines) != 3:
+        raise AssertionError(f"serve --full: rc {proc.returncode}, "
+                             f"{len(lines)} [serve] lines\n{proc.stderr}")
+    m = re.search(r"prefill ([\d.]+)s, decode ([\d.]+)ms/tok, ([\d.]+) tok/s",
+                  lines[1])
+    if not lines[0].startswith(f"[serve] {SERVE_ARCH}: generated "
+                               f"({SERVE_BATCH}, {SERVE_GEN})") or m is None:
+        raise AssertionError(f"serve --full printed {lines}")
+    print(f"serve CLI --full ({SERVE_ARCH}, bf16, batch {SERVE_BATCH}, prompt "
+          f"{SERVE_PROMPT}, gen {SERVE_GEN}): prefill {m.group(1)} s, decode "
+          f"{m.group(2)} ms/tok, {m.group(3)} tok/s; the process took "
+          f"{wall:.2f} s", flush=True)
+
+
+def _frontend(torch, cfg, batch, dev, seed):
+    """Frontend inputs from ``seed`` (0.1-scaled normals), as the models'
+    tests make them; the serve CLI feeds zeros of the same shapes."""
+    from repro_torch.launch.serve import frontend_inputs
+
+    kw, prefix_len = frontend_inputs(cfg, batch, dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    return ({k: 0.1 * torch.randn(v.shape, generator=gen, device=dev)
+             for k, v in kw.items()}, prefix_len)
+
+
+def _lm_greedy(torch, params, cfg, prompts, steps, kw, prefix_len):
+    """Prefill then ``steps`` greedy decode steps: the logits of every step
+    (on the CPU) and the tokens fed, with the device seconds of each."""
+    from repro_torch.models import decode_step, prefill
+
+    with torch.inference_mode():
+        if prompts.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = prefill(params, cfg, prompts,
+                                max_len=prompts.shape[1] + prefix_len + steps,
+                                **kw)
+        seq = [logits.cpu()]
+        t_prefill = time.perf_counter() - t0
+        toks = []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+            toks.append(tok)
+            logits, state = decode_step(params, cfg, state, tok)
+            seq.append(logits)
+        seq[1:] = [x.cpu() for x in seq[1:]]
+        t_decode = time.perf_counter() - t0
+    return seq, torch.cat(toks, 1).cpu(), t_prefill, t_decode / max(steps, 1)
+
+
+def _cut(cfg):
+    """Full width, depth cut to one superblock plus the tail (and one
+    encoder block); the serve CLI's arch keeps its full depth."""
+    import dataclasses
+
+    if cfg.name == SERVE_ARCH:
+        return cfg
+    return dataclasses.replace(cfg, n_blocks=1,
+                               enc_blocks=min(cfg.enc_blocks, 1))
+
+
+def _bf16_reduction_check(torch, dev):
+    """How often a bf16 product on the card differs from the same product
+    summed in f32 (TF32 off) and rounded once, with cuBLAS's reduced-
+    precision bf16 reductions allowed and not, at the serve arch's
+    decode and prefill GEMM shapes.  Both sides accumulate in f32, in
+    their own orders: the share is what order alone moves."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(SERVE_ARCH)
+    gen = torch.Generator(dev).manual_seed(3)
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    shapes = [(m, cfg.d_model, n) for m in (SERVE_BATCH,
+                                            SERVE_BATCH * SERVE_PROMPT)
+              for n in (cfg.n_heads * cfg.head_dim, cfg.vocab)]
+    parts = []
+    try:
+        for allow in (True, False):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+                = allow
+            for m, k, n in shapes:
+                x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+                w = (0.02 * torch.randn(k, n, generator=gen, device=dev)
+                     ).bfloat16()
+                want = (x.float() @ w.float()).bfloat16()
+                share = float(((x @ w) != want).float().mean())
+                parts.append(f"{'allowed' if allow else 'off'} {m}x{k}x{n} "
+                             f"{share:.3e}")
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            flag
+    print("bf16 products differing from f32-summed-then-rounded (reduced-"
+          "precision reductions " + "; ".join(parts) + ")", flush=True)
+
+
+def _moe_groups_check(torch, dev):
+    """One olmoe-1b-7b MoE layer at full width on MOE_GROUPS_SHAPE tokens
+    in bf16: 8 groups of 4096, one after the other.  The first group's
+    output is the layer's on that group alone (at most 1% of it differs:
+    the router's f32 product may sum in another order at another row
+    count); the memory the call adds stays under MOE_GROUPS_BYTES."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_apply, moe_init
+
+    cfg = get_config(SERVE_ARCH)
+    params = moe_init(torch.Generator(dev).manual_seed(4), cfg, dev)
+    x = (torch.randn(MOE_GROUPS_SHAPE + (cfg.d_model,),
+                     generator=torch.Generator(dev).manual_seed(5),
+                     device=dev) * 0.1).to(torch.bfloat16)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        y, aux = moe_apply(params, cfg, x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        added = torch.cuda.max_memory_allocated() - base
+        alone, _ = moe_apply(params, cfg, x[:1, :4096])
+    if not (torch.isfinite(y).all() and torch.isfinite(aux)):
+        raise AssertionError("MoE over 8 groups: not finite")
+    share = float((y[:1, :4096] != alone).float().mean())
+    if share > 0.01:
+        raise AssertionError(f"MoE over 8 groups: {share:.4f} of the first "
+                             "group differs from the layer on it alone")
+    if added > MOE_GROUPS_BYTES:
+        raise AssertionError(f"MoE over 8 groups added {added} bytes > "
+                             f"{MOE_GROUPS_BYTES}")
+    print(f"{SERVE_ARCH} MoE layer, {MOE_GROUPS_SHAPE[0]} x "
+          f"{MOE_GROUPS_SHAPE[1]} tokens (8 groups of 4096) in bf16: "
+          f"{wall:.3f} s, the call added {added} bytes "
+          f"({added / 2**30:.2f} GiB) at its peak; {share:.5f} of the first "
+          f"group differs from the layer on it alone", flush=True)
+
+
+def full_width_phase(torch, dev):
+    """Phase 10 (c): every attention arch at full width in bf16 on the
+    card: two runs from one seed bitwise equal, tokens in range, logits
+    finite, the parameter count the reference's, and the teacher-forcing
+    contract within TF_BOUND.  Returns the serve arch's peak memory."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params, decode_step, init_params
+    from repro_torch.models import prefill
+
+    _bf16_reduction_check(torch, dev)
+    peak = None
+    for arch in sorted(REF_PARAM_COUNTS):
+        full = get_config(arch)
+        if count_params(full) != REF_PARAM_COUNTS[arch]:
+            raise AssertionError(f"{arch}: count_params {count_params(full)}"
+                                 f" != the reference's "
+                                 f"{REF_PARAM_COUNTS[arch]}")
+        cfg = _cut(full)
+        t_start = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(dev).manual_seed(1)
+        prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH,
+                                               SERVE_PROMPT + TF_STEPS),
+                                generator=gen, device=dev, dtype=torch.int32)
+        kw, prefix_len = _frontend(torch, cfg, SERVE_BATCH, dev, 2)
+        runs = []
+        for _ in range(2):
+            params = init_params(torch.Generator(dev).manual_seed(0), cfg)
+            n_alloc = sum(p.numel() for p in params.parameters())
+            if n_alloc != count_params(cfg):
+                raise AssertionError(f"{arch}: {n_alloc} parameters "
+                                     f"allocated, count {count_params(cfg)}")
+            runs.append(_lm_greedy(torch, params, cfg,
+                                   prompts[:, :SERVE_PROMPT], SERVE_GEN - 1,
+                                   kw, prefix_len))
+            if len(runs) == 1:
+                del params
+        mem = torch.cuda.max_memory_allocated()
+        (seq_a, tok_a, t_pre, t_dec), (seq_b, tok_b, _, _) = runs
+        for a, b in zip(seq_a, seq_b):
+            if not (torch.isfinite(a).all() and torch.equal(a, b)):
+                raise AssertionError(f"{arch}: logits not finite or not "
+                                     "bitwise equal across two runs")
+        if not (torch.equal(tok_a, tok_b)
+                and bool(((tok_a >= 0) & (tok_a < cfg.vocab)).all())):
+            raise AssertionError(f"{arch}: tokens differ or out of range")
+        # teacher forcing: prefill(n0) + TF_STEPS decodes vs prefill(n0 + 4)
+        tf_cfg = cfg
+        if cfg.n_experts:  # no-drop capacity, as tests/test_models.py
+            tf_cfg = dataclasses.replace(
+                cfg, capacity_factor=float(cfg.n_experts) / cfg.top_k)
+        t_len = SERVE_PROMPT + TF_STEPS
+        with torch.inference_mode():
+            gt, _ = prefill(params, tf_cfg, prompts,
+                            max_len=t_len + prefix_len, **kw)
+            logits, state = prefill(params, tf_cfg, prompts[:, :SERVE_PROMPT],
+                                    max_len=t_len + prefix_len, **kw)
+            for i in range(SERVE_PROMPT, t_len):
+                logits, state = decode_step(params, tf_cfg, state,
+                                            prompts[:, i: i + 1])
+        err = float((gt - logits).abs().max())
+        scale = max(float(gt.abs().max()), 1.0)
+        if not err <= TF_BOUND * scale:
+            raise AssertionError(f"{arch}: teacher forcing {err:.4e} > "
+                                 f"{TF_BOUND} x {scale:.4f}")
+        del params, state
+        if arch == SERVE_ARCH:
+            peak = mem
+        print(f"{arch}: {cfg.n_layers} layers (of {full.n_layers}), "
+              f"d_model {cfg.d_model}, {count_params(cfg)} parameters "
+              f"(full config {count_params(full)}, the reference's), bf16; "
+              f"two runs bitwise equal, tokens in range; teacher forcing "
+              f"{err:.4e} = {err / scale:.4e} x scale {scale:.4f}; prefill "
+              f"{t_pre:.3f} s, decode {1e3 * t_dec:.2f} ms/tok "
+              f"({SERVE_BATCH} x {SERVE_PROMPT} prompt); peak memory "
+              f"{mem / 2**30:.2f} GiB; {time.perf_counter() - t_start:.2f} s",
+              flush=True)
+    _moe_groups_check(torch, dev)
+    return peak
+
+
+def reduced_phase(torch, dev):
+    """Phase 10 (d): the reduced configs (f32) and one int8-cache variant
+    on the card against the port on the CPU, the same weights: logits
+    within 1e-4 x max(max|cpu|, 1), greedy tokens equal."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models import init_params
+
+    cases = [(a, False) for a in sorted(REF_PARAM_COUNTS)]
+    cases.append((KV_QUANT_ARCH, True))
+    for arch, quant in cases:
+        cfg = dataclasses.replace(get_config(arch).reduced(), kv_quant=quant)
+        cpu = init_params(torch.Generator().manual_seed(0), cfg)
+        gpu = params_from_numpy(params_to_numpy(cpu), cfg, device=dev)
+        prompts = torch.randint(0, cfg.vocab, (2, 40), dtype=torch.int32,
+                                generator=torch.Generator().manual_seed(1))
+        kw, prefix_len = _frontend(torch, cfg, 2, "cpu", 2)
+        want, want_t, _, _ = _lm_greedy(torch, cpu, cfg, prompts, 5, kw,
+                                        prefix_len)
+        got, got_t, _, _ = _lm_greedy(
+            torch, gpu, cfg, prompts.to(dev), 5,
+            {k: v.to(dev) for k, v in kw.items()}, prefix_len)
+        rel = 0.0
+        for a, b in zip(got, want):
+            rel = max(rel, float((a - b).abs().max())
+                      / max(float(b.abs().max()), 1.0))
+        if rel > 1e-4 or not torch.equal(got_t, want_t):
+            raise AssertionError(f"{arch} reduced{' kv_quant' if quant else ''}"
+                                 f": logits {rel:.3e} x scale, tokens "
+                                 f"{'equal' if torch.equal(got_t, want_t) else 'differ'}")
+        print(f"{arch} reduced{' (kv_quant)' if quant else ''}, f32, card vs "
+              f"CPU port: prefill and 5 decode steps within {rel:.3e} x "
+              f"scale, greedy tokens equal", flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1950,6 +2363,17 @@ def _card_phases(torch, dev, smi, cpu_results) -> int:
     sharded_cli_phase(torch, dev)
     phase("sharded (d): a 4-block slot table against one block")
     sharded_table_phase(torch, dev)
+    phase("ABBA (a): the Fig. 5 streams on the card against the CPU port")
+    abba = abba_phase(torch, dev, _recv(cpu_results, "phase 10 (a)"))
+    phase("serve (b): the serve CLI at full width")
+    serve_cli_phase()
+    phase("serve (c): every attention arch at full width in bf16")
+    peak = full_width_phase(torch, dev)
+    print(f"{SERVE_ARCH} at full width and depth (the serve CLI's config): "
+          f"torch.cuda.max_memory_allocated {peak} bytes "
+          f"({peak / 2**30:.2f} GiB)", flush=True)
+    phase("serve (d): reduced configs, card against the CPU port")
+    reduced_phase(torch, dev)
     # the half-step's and the ewma kernel's launches are their own entry
     # points' (phases 3 and 5): the service launches neither
     for name in ("kmeans_assign", "ewma"):
@@ -1968,6 +2392,7 @@ def _card_phases(torch, dev, smi, cpu_results) -> int:
              "source": "src/repro_torch/kernels/csrc/ewma.cu",
              "replaces": "src/repro/kernels/ewma.py:104"}]
     rows = [{**row, "launches": launches[row["name"]],
+             "launches_abba": abba[row["name"]],
              **measured[row["name"]], "library_ms": None} for row in rows]
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -3,9 +3,10 @@
 Sender (Alg. 1): ``normalize`` (EWMA/EWMV) + ``compress`` (O(1) bridge error).
 Receiver (Alg. 2/3): ``receiver`` (wire -> pieces) + ``digitize`` (online
 k-means).  ``reconstruct``/``metrics`` close the loop; ``symed`` wires
-everything end to end.  ``AbbaResult`` and ``abba_encode``, the paper's
-offline baseline, are not ported yet.
+everything end to end.  ``abba`` is the paper's offline baseline
+(``AbbaResult``, ``abba_encode``).
 """
+from repro_torch.core.abba import AbbaResult, abba_encode
 from repro_torch.core.compress import (
     CompressorState,
     PieceEvent,

@@ -14,7 +14,7 @@ another trip (``_any``, one host sync per trip on CUDA; counted in
 ``host_syncs``).
 
 Arithmetic follows the reference's CPU compilation so that CPU results are
-bitwise equal to it: sums over the piece axis run in sequential blocks of
+bitwise equal to it: sums over the piece axis run in sequential windows of
 32 rows (XLA's tree-reduction rewrite), per-cluster sums in row order, and
 the two-term sums of squares fuse their second multiply-add.  On CUDA the
 row reductions are plain ``torch.sum`` / batched matrix products.
@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
-from repro_torch.core.normalize import fma32
+from repro_torch.core.normalize import fma32, sqrt32
 
 __all__ = [
     "DigitizerState",
@@ -74,20 +74,23 @@ def _seq_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _row_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Sum over ``dim`` (the piece axis) in the reference's CPU order:
-    sequential blocks of 32 rows, then the block sums in order."""
-    if x.is_cuda:
+def _row_sum(x: torch.Tensor, dim: int, ordered: bool = False
+             ) -> torch.Tensor:
+    """Sum over ``dim`` in the reference's CPU order: while more than 32
+    rows remain, windows of 32 rows (zero rows padded in, split evenly
+    before and after) each summed in order; then the rest in order.  On
+    CUDA a plain ``sum`` unless ``ordered``."""
+    if x.is_cuda and not ordered:
         return x.sum(dim)
     x = x.movedim(dim, 0)
-    n = x.shape[0]
-    if n <= _TREE:
-        return _seq_sum(x)
-    pad = -n % _TREE
-    if pad:
-        x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
-    blocks = x.reshape((-1, _TREE) + x.shape[1:]).movedim(1, 0)
-    return _seq_sum(_seq_sum(blocks))
+    while x.shape[0] > _TREE:
+        n = x.shape[0]
+        nb = -(-n // _TREE)
+        pad = nb * _TREE - n
+        x = torch.cat([x.new_zeros((pad // 2,) + x.shape[1:]), x,
+                       x.new_zeros((pad - pad // 2,) + x.shape[1:])])
+        x = _seq_sum(x.reshape((nb, _TREE) + x.shape[1:]).movedim(1, 0))
+    return _seq_sum(x)
 
 
 def _cluster_sums(onehot: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
@@ -95,12 +98,23 @@ def _cluster_sums(onehot: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
 
     On the CPU each cluster adds its rows in row order, as the reference's
     compiled dot does at these sizes; on CUDA it is a batched product.
+    ``onehot`` holds 0 and 1 only: a row adds to the cluster of its 1, and
+    the zero products of the other rows leave every running sum as it is,
+    so each cluster's members are gathered in row order and summed one
+    rank after the other (as many steps as the largest cluster).
     """
     if values.is_cuda:
         return torch.bmm(onehot.transpose(1, 2), values)
-    acc = onehot[:, 0, :, None] * values[:, 0, None, :]
-    for i in range(1, values.shape[1]):
-        acc = acc + onehot[:, i, :, None] * values[:, i, None, :]
+    s, _, k = onehot.shape
+    member = onehot != 0
+    rank = torch.cumsum(member.to(torch.int64), dim=1) - 1
+    slot, row, cluster = member.nonzero(as_tuple=True)
+    depth = int(rank.max()) + 1 if slot.numel() else 1
+    buf = values.new_zeros((depth, s, k, values.shape[-1]))
+    buf[rank[slot, row, cluster], slot, cluster] = values[slot, row]
+    acc = buf[0]
+    for i in range(1, depth):
+        acc = acc + buf[i]
     return acc
 
 
@@ -134,19 +148,21 @@ def digitizer_init(n_max: int, k_max: int, key: torch.Tensor) -> DigitizerState:
     )
 
 
-def scale_coords(pieces, mask, scl) -> Tuple[torch.Tensor, torch.Tensor]:
+def scale_coords(pieces, mask, scl, *, ordered: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """ABBA standardization of piece space, per slot.
 
     ``pieces (S, n, 2)``, ``mask (S, n)``.  Returns ``(scales (S, 2),
     coords (S, n, 2))`` with ``coords = pieces * scales`` and ``scales =
-    (scl/std(len), 1/std(inc))`` over the active pieces.
+    (scl/std(len), 1/std(inc))`` over the active pieces.  ``ordered``
+    sums in the CPU's order on CUDA too (bitwise across devices).
     """
     cnt = torch.clamp_min(mask.sum(-1, dtype=torch.int32), 1).float()
     m = mask[..., None].float()
-    mean = _row_sum(pieces * m, -2) / cnt[..., None]
+    mean = _row_sum(pieces * m, -2, ordered) / cnt[..., None]
     dev = pieces - mean[..., None, :]
-    var = _row_sum(dev * dev * m, -2) / cnt[..., None]
-    std = torch.sqrt(var)
+    var = _row_sum(dev * dev * m, -2, ordered) / cnt[..., None]
+    std = sqrt32(var)
     std = torch.where(std < 1e-12, torch.ones_like(std), std)
     num = torch.stack([torch.full_like(std[..., 0], float(np.float32(scl))),
                        torch.ones_like(std[..., 1])], dim=-1)
@@ -235,14 +251,16 @@ def masked_kmeans(coords, mask, c_init, k, iters: int = 10):
     return c[0], lab[0]
 
 
-def max_cluster_variance(coords, mask, centers, labels, k):
+def max_cluster_variance(coords, mask, centers, labels, k, *,
+                         ordered: bool = False):
     """Per slot: ``max_c sum_{p in c} ||p - center_c||^2 / max(|c| - 1, 1)``
-    over active, non-empty clusters (the paper's MAXCLUSTERVARIANCE)."""
+    over active, non-empty clusters (the paper's MAXCLUSTERVARIANCE).
+    ``ordered`` as in ``scale_coords``."""
     k_max = centers.shape[-2]
     onehot = _one_hot(labels, k_max) * mask[..., None].float()
     diff = coords[..., :, None, :] - centers[..., None, :, :]
     sq = _dot_chain(diff, diff)
-    per_cluster = _row_sum(sq * onehot, -2)
+    per_cluster = _row_sum(sq * onehot, -2, ordered)
     counts = onehot.sum(-2)
     var = per_cluster / torch.clamp_min(counts - 1.0, 1.0)
     active = ((torch.arange(k_max, device=coords.device) < k[..., None])

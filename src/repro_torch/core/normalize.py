@@ -13,7 +13,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 __all__ = ["EwmState", "ewm_init", "ewm_coeffs", "ewm_step", "ewm_scan",
-           "standardize", "fma32"]
+           "standardize", "fma32", "sqrt32"]
 
 
 def fma32(a, b, c) -> torch.Tensor:
@@ -38,6 +38,15 @@ def fma32(a, b, c) -> torch.Tensor:
     towards = torch.where(e > 0, float("inf"), float("-inf")).to(s.dtype)
     s = torch.where(inexact & even, torch.nextafter(s, towards), s)
     return s.float()
+
+
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 square root, as the reference's compiled
+    ``sqrt`` gives it.  Taken in f64 and rounded once: 53 bits hold the
+    root of a 24-bit value closely enough that the rounding to f32 is
+    exact (torch's vectorized f32 ``sqrt`` on the CPU can miss by an
+    ulp)."""
+    return torch.sqrt(x.double()).float()
 
 
 class EwmState(NamedTuple):

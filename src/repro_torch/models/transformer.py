@@ -1,0 +1,374 @@
+"""Model assembly: superblock stacks, prefill and decode paths, for the
+attention architectures.
+
+Port of ``repro.models.transformer`` for layer kind ``attn`` (dense, MoE,
+local/global, prefix-LM, encoder-decoder).  A model is one ``ParamTree``
+whose children carry the reference's names: ``embed``, ``ln_f``,
+``blocks`` (``n_blocks`` superblocks, each a ``ModuleList`` over the
+pattern's positions, where the reference stacks every leaf on a leading
+axis), ``tail``, ``lm_head``, ``enc_blocks`` and ``enc_ln_f``.  The
+superblocks run in a Python loop where the reference scans them.
+
+Two execution modes share one layer dispatcher:
+  * ``prefill`` -- full-sequence compute (``forward(collect=True)``) that
+                   also fills the decode caches,
+  * ``decode``  -- one token against the caches (``serve_step``).
+
+Layer kinds ``mamba``, ``mlstm`` and ``slstm`` are not ported yet: building
+a model that has one raises ``NotImplementedError`` (ROADMAP Queue A 9).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.attention import KVCache
+from repro_torch.models.layers import (
+    ParamTree, embed_init, init_dense, matmul_f32, mlp_apply, mlp_init,
+    model_dtype, rms_norm, sinusoid_pos,
+)
+
+__all__ = [
+    "init_params", "forward", "init_decode_state", "decode_step", "prefill",
+]
+
+
+def _check_ported(cfg) -> None:
+    for spec in cfg.block_pattern + cfg.tail_pattern:
+        if spec.kind != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: layer kind {spec.kind!r} is not ported to "
+                f"PyTorch yet (models/ssm, models/xlstm: ROADMAP Queue A 9)")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _layer_init(gen, cfg, spec, decoder: bool, device) -> ParamTree:
+    d = cfg.d_model
+    zeros = lambda: torch.zeros((d,), dtype=torch.float32, device=device)
+    p: Dict[str, Any] = {"ln1": zeros()}
+    p.update(attn_mod.attn_init(gen, cfg, device))
+    if decoder and cfg.cross_attention:
+        p["lnx"] = zeros()
+        p["cross"] = ParamTree(**attn_mod.attn_init(gen, cfg, device))
+    if spec.has_mlp:
+        p["ln2"] = zeros()
+        if spec.moe:
+            p["moe"] = moe_mod.moe_init(gen, cfg, device)
+        else:
+            p["mlp"] = mlp_init(gen, cfg, device)
+    return ParamTree(**p)
+
+
+def _superblock_init(gen, cfg, pattern, decoder: bool, device):
+    return nn.ModuleList(_layer_init(gen, cfg, spec, decoder, device)
+                         for spec in pattern)
+
+
+def _enc_pattern(cfg):
+    return (type(cfg.block_pattern[0])(kind="attn"),)
+
+
+def init_params(gen: Optional[torch.Generator], cfg, *,
+                device=None) -> ParamTree:
+    """Random parameters drawn from ``gen`` on its device (or ``device``),
+    one tensor at a time in the model dtype.  ``gen=None`` with
+    ``device="meta"`` builds the tree without allocating."""
+    _check_ported(cfg)
+    device = torch.device(device) if device is not None else gen.device
+    dt = model_dtype(cfg)
+    d = cfg.d_model
+    params: Dict[str, Any] = {
+        "embed": embed_init(gen, cfg.vocab, d, dt, device),
+        "ln_f": torch.zeros((d,), dtype=torch.float32, device=device),
+    }
+    if cfg.n_blocks > 0:
+        params["blocks"] = nn.ModuleList(
+            _superblock_init(gen, cfg, cfg.block_pattern, True, device)
+            for _ in range(cfg.n_blocks))
+    if cfg.tail_pattern:
+        params["tail"] = _superblock_init(gen, cfg, cfg.tail_pattern, True,
+                                          device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_dense(gen, d, cfg.vocab, dt, device,
+                                       scale=0.02)
+    if cfg.enc_blocks > 0:
+        params["enc_blocks"] = nn.ModuleList(
+            _superblock_init(gen, cfg, _enc_pattern(cfg), False, device)
+            for _ in range(cfg.enc_blocks))
+        params["enc_ln_f"] = torch.zeros((d,), dtype=torch.float32,
+                                         device=device)
+    return ParamTree(**params)
+
+
+# ---------------------------------------------------------------------------
+# Layer dispatch (prefill)
+# ---------------------------------------------------------------------------
+
+def _layer_fwd(p, cfg, spec, x, aux, *, enc_mem, mode_override, collect,
+               pos0=0):
+    """Returns (x, aux, cache_or_None)."""
+    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    out, kv = attn_mod.attn_apply_train(
+        p, cfg, h, attn_type=spec.attn_type, mode_override=mode_override,
+        pos0=pos0, return_kv=collect,
+    )
+    x = x + out
+    if enc_mem is not None and cfg.cross_attention:
+        hx = rms_norm(x, p.lnx, cfg.norm_eps)
+        xo, xkv = attn_mod.attn_apply_train(
+            p.cross, cfg, hx, kv_memory=enc_mem, return_kv=collect)
+        x = x + xo
+        cache = (kv, xkv) if collect else None
+    else:
+        cache = (kv, None) if collect else None
+    if spec.has_mlp:
+        h2 = rms_norm(x, p.ln2, cfg.norm_eps)
+        if spec.moe:
+            y, a = moe_mod.moe_apply(p.moe, cfg, h2)
+            aux = aux + a
+        else:
+            y = mlp_apply(p.mlp, h2, cfg.mlp_kind)
+        x = x + y
+    return x, aux, cache
+
+
+def _stack_fwd(blocks, cfg, pattern, x, *, enc_mem, mode_override, collect):
+    """Run the superblocks in order; returns (x, aux, caches), ``caches`` a
+    list over superblocks of tuples over the pattern (None unless
+    ``collect``)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = []
+    for block in blocks:
+        block_caches = []
+        for p, spec in zip(block, pattern):
+            x, aux, c = _layer_fwd(p, cfg, spec, x, aux, enc_mem=enc_mem,
+                                   mode_override=mode_override,
+                                   collect=collect)
+            block_caches.append(c)
+        caches.append(tuple(block_caches))
+    return x, aux, (caches if collect else None)
+
+
+def _embed_tokens(params, cfg, tokens, pos0=0):
+    x = params.embed[tokens].to(model_dtype(cfg))
+    # the constant rounded to the model dtype first, as the reference's
+    # jnp.asarray(d ** 0.5, x.dtype)
+    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if cfg.pos_kind == "sinusoid":
+        pos = pos0 + torch.arange(tokens.shape[1], device=x.device)[None, :]
+        x = x + sinusoid_pos(pos, cfg.d_model).to(x.dtype)
+    return x
+
+
+def _encode(params, cfg, enc_frames):
+    """Whisper-style encoder over (stubbed) frame embeddings."""
+    x = enc_frames.to(model_dtype(cfg))
+    x, _, _ = _stack_fwd(params.enc_blocks, cfg, _enc_pattern(cfg), x,
+                         enc_mem=None, mode_override="bidir", collect=False)
+    return rms_norm(x, params.enc_ln_f, cfg.norm_eps)
+
+
+def forward(params, cfg, tokens, *, prefix_embeds=None, enc_frames=None,
+            collect: bool = False):
+    """Full-sequence forward.
+
+    Returns (activations (B, S_total, d), aux_loss, caches, enc_mem).
+    ``S_total`` includes the VLM prefix if present.
+    """
+    x = _embed_tokens(params, cfg, tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+
+    enc_mem = _encode(params, cfg, enc_frames) if enc_frames is not None else None
+
+    caches = None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.n_blocks:
+        x, aux, caches = _stack_fwd(
+            params.blocks, cfg, cfg.block_pattern, x, enc_mem=enc_mem,
+            mode_override=None, collect=collect)
+    caches_tail = []
+    for p, spec in zip(params.get("tail", ()), cfg.tail_pattern):
+        x, aux, c = _layer_fwd(p, cfg, spec, x, aux, enc_mem=enc_mem,
+                               mode_override=None, collect=collect)
+        caches_tail.append(c)
+    x = rms_norm(x, params.ln_f, cfg.norm_eps)
+    return x, aux, (caches, tuple(caches_tail)), enc_mem
+
+
+def _unembed(params, cfg, x):
+    """f32 logits from the model-dtype activations and head."""
+    w = params.embed.T if cfg.tie_embeddings else params.lm_head
+    return matmul_f32(x, w.to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def _layer_cache_template(cfg, spec, batch, max_len, dtype, with_cross,
+                          device):
+    self_c = attn_mod.init_kv_cache(cfg, batch, max_len, spec.attn_type,
+                                    dtype, device, quant=cfg.kv_quant)
+    cross_c = (
+        attn_mod.init_kv_cache(cfg, batch, cfg.num_prefix_embeds or 1,
+                               "global", dtype, device)
+        if with_cross else None
+    )
+    return (self_c, cross_c)
+
+
+def init_decode_state(cfg, batch: int, max_len: int,
+                      device=None) -> Dict[str, Any]:
+    """Zeroed decode state on ``device`` (``cuda`` unless told otherwise):
+    ``pos`` a 0-d int32 tensor, ``blocks`` a list over superblocks of
+    tuples over the pattern of ``(self cache, cross cache or None)``,
+    ``tail`` such a tuple, ``enc_mem`` for encoder-decoder configs."""
+    _check_ported(cfg)
+    device = resolve_device(device)
+    dtype = model_dtype(cfg)
+    with_cross = cfg.cross_attention
+
+    def caches(pattern):
+        return tuple(_layer_cache_template(cfg, s, batch, max_len, dtype,
+                                           with_cross, device)
+                     for s in pattern)
+
+    state: Dict[str, Any] = {
+        "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    if cfg.n_blocks:
+        state["blocks"] = [caches(cfg.block_pattern)
+                           for _ in range(cfg.n_blocks)]
+    if cfg.tail_pattern:
+        state["tail"] = caches(cfg.tail_pattern)
+    if cfg.enc_blocks:
+        state["enc_mem"] = torch.zeros(
+            (batch, cfg.num_prefix_embeds or 1, cfg.d_model), dtype=dtype,
+            device=device)
+    return state
+
+
+def _layer_decode(p, cfg, spec, x1, cache, pos):
+    self_c, cross_c = cache
+    h = rms_norm(x1, p.ln1, cfg.norm_eps)
+    out, self_c = attn_mod.attn_apply_decode(
+        p, cfg, h, self_c, pos, attn_type=spec.attn_type)
+    x1 = x1 + out
+    if cross_c is not None:
+        hx = rms_norm(x1, p.lnx, cfg.norm_eps)
+        xo, _ = attn_mod.attn_apply_decode(
+            p.cross, cfg, hx, self_c, pos, kv_memory=cross_c)
+        x1 = x1 + xo
+    if spec.has_mlp:
+        h2 = rms_norm(x1, p.ln2, cfg.norm_eps)
+        if spec.moe:
+            y, _ = moe_mod.moe_apply(p.moe, cfg, h2, group_size=x1.shape[0])
+        else:
+            y = mlp_apply(p.mlp, h2, cfg.mlp_kind)
+        x1 = x1 + y
+    return x1, (self_c, cross_c)
+
+
+def decode_step(params, cfg, state, token):
+    """One serve step: token (B, 1) int -> (logits (B, 1, V) f32, new state).
+
+    The KV caches are updated in place (the new state shares them with
+    ``state``, as the reference's serve loop donates its state); ``pos``
+    is a new 0-d tensor, and nothing here reads it on the host.
+    """
+    pos = state["pos"]
+    x1 = _embed_tokens(params, cfg, token, pos0=pos)
+
+    new_state = dict(state)
+    if cfg.n_blocks:
+        new_blocks = []
+        for block, block_cache in zip(params.blocks, state["blocks"]):
+            new_caches = []
+            for p, spec, c in zip(block, cfg.block_pattern, block_cache):
+                x1, nc = _layer_decode(p, cfg, spec, x1, c, pos)
+                new_caches.append(nc)
+            new_blocks.append(tuple(new_caches))
+        new_state["blocks"] = new_blocks
+    if cfg.tail_pattern:
+        new_tail = []
+        for p, spec, c in zip(params.tail, cfg.tail_pattern, state["tail"]):
+            x1, nc = _layer_decode(p, cfg, spec, x1, c, pos)
+            new_tail.append(nc)
+        new_state["tail"] = tuple(new_tail)
+
+    x1 = rms_norm(x1, params.ln_f, cfg.norm_eps)
+    logits = _unembed(params, cfg, x1)
+    new_state["pos"] = pos + 1
+    return logits, new_state
+
+
+def prefill(params, cfg, tokens, *, prefix_embeds=None, enc_frames=None,
+            max_len: Optional[int] = None):
+    """Process a prompt; returns (last-position logits, ready decode state)."""
+    s_total = tokens.shape[1] + (
+        prefix_embeds.shape[1] if prefix_embeds is not None else 0
+    )
+    max_len = max_len or s_total
+    x, _, (caches, tail_caches), enc_mem = forward(
+        params, cfg, tokens, prefix_embeds=prefix_embeds,
+        enc_frames=enc_frames, collect=True)
+    batch = tokens.shape[0]
+    state = init_decode_state(cfg, batch, max_len, device=tokens.device)
+    state["pos"] = torch.tensor(s_total, dtype=torch.int32,
+                                device=tokens.device)
+
+    if cfg.n_blocks:
+        state["blocks"] = [
+            tuple(_fill_cache(cfg, spec, t, g, s_total)
+                  for spec, t, g in zip(cfg.block_pattern, temps, got))
+            for temps, got in zip(state["blocks"], caches)]
+    if cfg.tail_pattern:
+        state["tail"] = tuple(
+            _fill_cache(cfg, spec, t, g, s_total)
+            for spec, t, g in zip(cfg.tail_pattern, state["tail"], tail_caches)
+        )
+    if enc_mem is not None:
+        state["enc_mem"] = enc_mem
+    logits = _unembed(params, cfg, x[:, -1:])
+    return logits, state
+
+
+def _fill_kv(cfg, attn_type, template, got, s_total):
+    k, v = got
+    quant = isinstance(template, attn_mod.QuantKVCache)
+    c = (template.k_q if quant else template.k).shape[1]
+    if attn_type == "local" and s_total > c:
+        # ring buffer: keep the last ``window`` entries at their ring slots
+        start = s_total - c
+        roll = s_total % c  # ring offset: slot(p) = p mod c
+        k = torch.roll(k[:, start:start + c], roll, dims=1)
+        v = torch.roll(v[:, start:start + c], roll, dims=1)
+    else:
+        pad = (0, 0, 0, 0, 0, c - k.shape[1])
+        k = torch.nn.functional.pad(k, pad)
+        v = torch.nn.functional.pad(v, pad)
+    if quant:
+        k_q, k_s = attn_mod._quantize(k)
+        v_q, v_s = attn_mod._quantize(v)
+        return attn_mod.QuantKVCache(k_q=k_q, v_q=v_q, k_s=k_s, v_s=v_s)
+    return KVCache(k=k.to(template.k.dtype).contiguous(),
+                   v=v.to(template.v.dtype).contiguous())
+
+
+def _fill_cache(cfg, spec, template, got, s_total):
+    kv, xkv = got
+    self_t, cross_t = template
+    self_c = _fill_kv(cfg, spec.attn_type, self_t, kv, s_total)
+    cross_c = cross_t
+    if cross_t is not None and xkv is not None:
+        cross_c = KVCache(k=xkv[0].to(cross_t.k.dtype),
+                          v=xkv[1].to(cross_t.v.dtype))
+    return (self_c, cross_c)

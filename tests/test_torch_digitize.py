@@ -170,6 +170,28 @@ def test_scale_coords_and_cluster_variance():
     np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
 
 
+@pytest.mark.parametrize("n", [33, 50, 100, 300, 1000, 1100, 2000])
+def test_scale_coords_odd_widths(n):
+    """Piece buffers whose width is no multiple of 32: the reference pads
+    each window level evenly before and after, and reduces again while
+    more than 32 windows remain."""
+    rng = np.random.default_rng(n)
+    pieces = np.stack([rng.integers(1, 50, (3, n)),
+                       rng.normal(0, 1, (3, n)) * 10.0 ** rng.integers(
+                           -2, 3, (3, n))], -1).astype(np.float32)
+    mask = np.arange(n)[None, :] < rng.integers(n // 2, n + 1, (3, 1))
+    sc_j, co_j = jax.jit(jax.vmap(
+        lambda p, m: jd.scale_coords(p, m, jnp.float32(1.0))))(pieces, mask)
+    sc_t, co_t = td.scale_coords(torch.from_numpy(pieces),
+                                 torch.from_numpy(mask), 1.0)
+    np.testing.assert_array_equal(sc_t.numpy(), np.asarray(sc_j))
+    np.testing.assert_array_equal(co_t.numpy(), np.asarray(co_j))
+    x = pieces[0, :, 1]
+    np.testing.assert_array_equal(
+        td._row_sum(torch.from_numpy(x), 0).numpy(),
+        np.asarray(jax.jit(jnp.sum)(x)))
+
+
 @pytest.mark.parametrize("kind,seed", [("mixed", 0), ("walk", 1),
                                        ("sine", 2)])
 def test_symed_encode_bitwise(kind, seed):

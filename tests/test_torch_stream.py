@@ -604,11 +604,11 @@ def test_totals_have_the_reference_keys():
 
 def test_port_imports_no_jax():
     """``import repro_torch``, ``repro_torch.core``, the transport, the
-    recorder, the workload harness, the fleet runtime and the mesh
-    builders, one CPU service round with the DTW monitor on, one
-    compressed-in round, one replay of a scenario and one sharded fleet
-    run leave jax and every module of the JAX package out of
-    ``sys.modules``."""
+    recorder, the workload harness, the fleet runtime, the mesh helpers,
+    the models, the configs and the serve CLI module, one CPU service round
+    with the DTW monitor on, one compressed-in round, one replay of a
+    scenario, one sharded fleet run, one ABBA encode and one reduced serve
+    leave jax and every module of the JAX package out of ``sys.modules``."""
     code = (
         "import sys, numpy as np\n"
         "import repro_torch, repro_torch.core\n"
@@ -641,6 +641,14 @@ def test_port_imports_no_jax():
         ".reshape(2, 64)), cfg, prng.key(0), fleet_data_mesh(2, "
         "device='cpu'), chunk_len=32, digitize_every_k=1)\n"
         "assert float(tele['streams']) == 2 and float(tele['pieces']) > 0\n"
+        "import repro_torch.models, repro_torch.launch.serve\n"
+        "import repro_torch.core.abba, repro_torch.configs\n"
+        "from repro_torch.core.abba import abba_encode\n"
+        "res = abba_encode(np.sin(np.arange(64, dtype=np.float32) / 5),"
+        " n_max=32, k_max=8, len_max=16, device='cpu')\n"
+        "assert int(res.n_pieces) > 0\n"
+        "assert repro_torch.launch.serve.main(['--device', 'cpu', '--gen',"
+        " '3', '--prompt-len', '4', '--batch', '1']) == 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print('BAD', bad)\n"
