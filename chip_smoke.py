@@ -105,19 +105,24 @@ each raising on failure:
    the CPU port (run in the worker): lengths, incs, n_pieces, mean and std
    bitwise, at least 99% of labels equal, DTW within 1e-4 relative where
    the labels agree; its launches, host syncs and wall time printed; (b)
-   ``python -m repro_torch.launch.serve --full`` (olmoe-1b-7b, bf16, the
-   CLI's defaults) exits 0 with its three ``[serve]`` lines; (c) the 8
-   attention archs at full width in bf16 (olmoe-1b-7b at full depth, the
-   others cut to one superblock plus the tail and one encoder block): two
+   ``python -m repro_torch.launch.serve --full`` on olmoe-1b-7b and on
+   xlstm-125m (bf16, the CLI's defaults otherwise) exits 0 with its three
+   ``[serve]`` lines; (c) the 10 archs at full width in bf16
+   (olmoe-1b-7b and xlstm-125m at full depth, jamba-1.5-large-398b cut
+   to layers 2-4 of its superblock (``JAMBA_CUT``: a mamba layer with its
+   dense FFN, one with MoE, the attention layer), the others cut to one
+   superblock plus the tail and one encoder block): two
    runs from one seed bitwise equal, tokens in range, logits finite,
    ``count_params`` the reference's, and the teacher-forcing contract of
-   ``tests/test_models.py`` within ``TF_BOUND`` x max(max|logits|, 1);
-   olmoe-1b-7b's peak memory printed; one of olmoe-1b-7b's MoE layers at
+   ``tests/test_models.py`` within ``TF_BOUND`` x max(max|logits|, 1)
+   (for the recurrent layers: prefill's chunk scan and mLSTM closed form
+   against their decode recurrences); the full-depth archs' peak memory
+   printed; one of olmoe-1b-7b's MoE layers at
    full width on 4 x 8192 tokens (8 groups of 4096, run one after the
    other): finite, the first group as the layer on that group alone (at
    most 1% of its outputs differ: the router's f32 product may sum in
    another order at another row count), the memory the call adds under
-   ``MOE_GROUPS_BYTES``; (d) the 8 reduced configs and one int8-cache
+   ``MOE_GROUPS_BYTES``; (d) the 10 reduced configs and one int8-cache
    variant in f32 on the card against the CPU port on the same weights:
    logits within 1e-4 x max(max|cpu|, 1), greedy tokens equal.
 
@@ -206,7 +211,7 @@ SHARD_POINTS, SHARD_BLOCKS, SHARD_DTW_EVERY = 512, 4, 4
 # and fig5_suite.py: 4 series x 1000 points of each family, seed 11), the
 # serve CLI's defaults, the teacher-forcing bound in bf16 (fixed before the
 # first run on the card), and the reference's parameter counts of the
-# attention architectures (tests/test_torch_models.py holds them against
+# ten architectures (tests/test_torch_models.py holds them against
 # repro.models.count_params)
 ABBA_SERIES, ABBA_POINTS, ABBA_SEED = 4, 1000, 11
 ABBA_KW = dict(n_max=256, len_max=256, k_max=64, scl=1.0)
@@ -215,11 +220,18 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 32, 16
 TF_STEPS, TF_BOUND = 4, 5e-2
 REF_PARAM_COUNTS = {
     "codeqwen1.5-7b": 8190038016, "command-r-35b": 30283538432,
-    "gemma3-27b": 27008319744, "mixtral-8x7b": 46702792704,
-    "nemotron-4-15b": 15628376064, "olmoe-1b-7b": 6919096320,
-    "paligemma-3b": 2508662784, "whisper-small": 238143744,
+    "gemma3-27b": 27008319744, "jamba-1.5-large-398b": 398555111424,
+    "mixtral-8x7b": 46702792704, "nemotron-4-15b": 15628376064,
+    "olmoe-1b-7b": 6919096320, "paligemma-3b": 2508662784,
+    "whisper-small": 238143744, "xlstm-125m": 155634512,
 }
 SERVE_ARCH = "olmoe-1b-7b"  # the serve CLI's default, at full depth
+# (b) also serves xlstm-125m through the CLI; (c) runs both at full depth
+FULL_DEPTH = (SERVE_ARCH, "xlstm-125m")
+# (c) cuts jamba to these positions of its superblock of 8 (a mamba layer
+# with its dense FFN, one with MoE, the attention layer): one superblock
+# holds 4 MoE layers of 19.3 GB of bf16 experts each, more than the card
+JAMBA_CUT = slice(2, 5)
 KV_QUANT_ARCH = "gemma3-27b"  # (d)'s int8-cache variant: ring and global
 # (c)'s MoE layer on 4 x 8192 tokens: one group of 4096 needs about 2.5 GB
 # (its (g, e, cap) combine in f32, the bf16 dispatch, the experts'
@@ -1969,8 +1981,9 @@ def abba_phase(torch, dev, cpu):
     return counts
 
 
-def serve_cli_phase():
-    """Phase 10 (b): ``python -m repro_torch.launch.serve --full``."""
+def serve_cli_phase(arch):
+    """Phase 10 (b): ``python -m repro_torch.launch.serve --full`` on
+    ``arch`` (the CLI's defaults otherwise)."""
     import re
 
     env = {**os.environ,
@@ -1978,21 +1991,23 @@ def serve_cli_phase():
                [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--full"],
+        [sys.executable, "-m", "repro_torch.launch.serve", "--full",
+         "--arch", arch],
         cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[serve]")]
     print("\n".join("serve | " + ln for ln in proc.stdout.splitlines()),
           flush=True)
     if proc.returncode != 0 or len(lines) != 3:
-        raise AssertionError(f"serve --full: rc {proc.returncode}, "
-                             f"{len(lines)} [serve] lines\n{proc.stderr}")
+        raise AssertionError(f"serve --full --arch {arch}: rc "
+                             f"{proc.returncode}, {len(lines)} [serve] "
+                             f"lines\n{proc.stderr}")
     m = re.search(r"prefill ([\d.]+)s, decode ([\d.]+)ms/tok, ([\d.]+) tok/s",
                   lines[1])
-    if not lines[0].startswith(f"[serve] {SERVE_ARCH}: generated "
+    if not lines[0].startswith(f"[serve] {arch}: generated "
                                f"({SERVE_BATCH}, {SERVE_GEN})") or m is None:
         raise AssertionError(f"serve --full printed {lines}")
-    print(f"serve CLI --full ({SERVE_ARCH}, bf16, batch {SERVE_BATCH}, prompt "
+    print(f"serve CLI --full ({arch}, bf16, batch {SERVE_BATCH}, prompt "
           f"{SERVE_PROMPT}, gen {SERVE_GEN}): prefill {m.group(1)} s, decode "
           f"{m.group(2)} ms/tok, {m.group(3)} tok/s; the process took "
           f"{wall:.2f} s", flush=True)
@@ -2036,14 +2051,23 @@ def _lm_greedy(torch, params, cfg, prompts, steps, kw, prefix_len):
 
 
 def _cut(cfg):
-    """Full width, depth cut to one superblock plus the tail (and one
-    encoder block); the serve CLI's arch keeps its full depth."""
+    """Full width; the archs of FULL_DEPTH keep their depth, jamba keeps
+    JAMBA_CUT of its superblock once, the others one superblock plus the
+    tail (and one encoder block).  Returns (config, what was cut)."""
     import dataclasses
 
-    if cfg.name == SERVE_ARCH:
-        return cfg
-    return dataclasses.replace(cfg, n_blocks=1,
-                               enc_blocks=min(cfg.enc_blocks, 1))
+    if cfg.name in FULL_DEPTH:
+        return cfg, "full depth"
+    if cfg.name.startswith("jamba"):
+        pattern = cfg.block_pattern[JAMBA_CUT]
+        kinds = ", ".join(s.kind + ("+MoE" if s.moe else "+dense FFN")
+                          for s in pattern)
+        return (dataclasses.replace(cfg, block_pattern=pattern, n_blocks=1),
+                f"layers {JAMBA_CUT.start}-{JAMBA_CUT.stop - 1} of its "
+                f"superblock of {len(cfg.block_pattern)} ({kinds})")
+    return (dataclasses.replace(cfg, n_blocks=1,
+                                enc_blocks=min(cfg.enc_blocks, 1)),
+            "one superblock plus the tail")
 
 
 def _bf16_reduction_check(torch, dev):
@@ -2121,10 +2145,10 @@ def _moe_groups_check(torch, dev):
 
 
 def full_width_phase(torch, dev):
-    """Phase 10 (c): every attention arch at full width in bf16 on the
-    card: two runs from one seed bitwise equal, tokens in range, logits
-    finite, the parameter count the reference's, and the teacher-forcing
-    contract within TF_BOUND.  Returns the serve arch's peak memory."""
+    """Phase 10 (c): every arch at full width in bf16 on the card: two
+    runs from one seed bitwise equal, tokens in range, logits finite, the
+    parameter count the reference's, and the teacher-forcing contract
+    within TF_BOUND.  Returns the peak memory of each FULL_DEPTH arch."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2132,14 +2156,14 @@ def full_width_phase(torch, dev):
     from repro_torch.models import prefill
 
     _bf16_reduction_check(torch, dev)
-    peak = None
+    peak = {}
     for arch in sorted(REF_PARAM_COUNTS):
         full = get_config(arch)
         if count_params(full) != REF_PARAM_COUNTS[arch]:
             raise AssertionError(f"{arch}: count_params {count_params(full)}"
                                  f" != the reference's "
                                  f"{REF_PARAM_COUNTS[arch]}")
-        cfg = _cut(full)
+        cfg, cut = _cut(full)
         t_start = time.perf_counter()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2189,9 +2213,9 @@ def full_width_phase(torch, dev):
             raise AssertionError(f"{arch}: teacher forcing {err:.4e} > "
                                  f"{TF_BOUND} x {scale:.4f}")
         del params, state
-        if arch == SERVE_ARCH:
-            peak = mem
-        print(f"{arch}: {cfg.n_layers} layers (of {full.n_layers}), "
+        if arch in FULL_DEPTH:
+            peak[arch] = mem
+        print(f"{arch}: {cfg.n_layers} layers (of {full.n_layers}; {cut}), "
               f"d_model {cfg.d_model}, {count_params(cfg)} parameters "
               f"(full config {count_params(full)}, the reference's), bf16; "
               f"two runs bitwise equal, tokens in range; teacher forcing "
@@ -2366,12 +2390,14 @@ def _card_phases(torch, dev, smi, cpu_results) -> int:
     phase("ABBA (a): the Fig. 5 streams on the card against the CPU port")
     abba = abba_phase(torch, dev, _recv(cpu_results, "phase 10 (a)"))
     phase("serve (b): the serve CLI at full width")
-    serve_cli_phase()
-    phase("serve (c): every attention arch at full width in bf16")
-    peak = full_width_phase(torch, dev)
-    print(f"{SERVE_ARCH} at full width and depth (the serve CLI's config): "
-          f"torch.cuda.max_memory_allocated {peak} bytes "
-          f"({peak / 2**30:.2f} GiB)", flush=True)
+    for arch in FULL_DEPTH:
+        serve_cli_phase(arch)
+    phase("serve (c): every arch at full width in bf16")
+    peaks = full_width_phase(torch, dev)
+    for arch, peak in peaks.items():
+        print(f"{arch} at full width and depth (the serve CLI's config): "
+              f"torch.cuda.max_memory_allocated {peak} bytes "
+              f"({peak / 2**30:.2f} GiB)", flush=True)
     phase("serve (d): reduced configs, card against the CPU port")
     reduced_phase(torch, dev)
     # the half-step's and the ewma kernel's launches are their own entry

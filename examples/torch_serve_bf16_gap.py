@@ -1,6 +1,6 @@
 """The teacher-forcing gap of the port's LM serving path in bf16.
 
-For each attention architecture at a mid width (d_model 512, 8 heads of
+For each architecture at a mid width (d_model 512, 8 heads of
 64, d_ff 1024, vocab 8192, 2 superblocks, window 32, at most 16 experts
 top-4 at no-drop capacity) in bf16: the last logits of ``prefill(n0)``
 plus 4 ``decode_step``s against ``prefill(n0 + 4)``, as max |diff| and
@@ -58,8 +58,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     for arch in sorted(ARCHS):
-        if ARCHS[arch].name.startswith(("jamba", "xlstm")):
-            continue
         err, rel = gap(arch, device)
         print(f"{arch}: max |diff| {err:.4f}, {rel:.4f} of max(max|logits|, 1)")
     return 0

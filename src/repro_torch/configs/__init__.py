@@ -1,9 +1,7 @@
 """Config registry: ``--arch <id>`` -> exact public configuration.
 
 Port of ``repro.configs``: the ten architectures and the paper's SymED
-settings, as data.  The port's models build the attention architectures;
-``jamba-1.5-large-398b`` and ``xlstm-125m`` raise ``NotImplementedError``
-when built (ROADMAP Queue A 9).
+settings, as data.  The port's models build all ten.
 """
 from __future__ import annotations
 

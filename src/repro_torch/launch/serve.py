@@ -118,14 +118,9 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    try:
-        tokens, stats = serve(cfg, batch=args.batch,
-                              prompt_len=args.prompt_len, gen=args.gen,
-                              temperature=args.temperature,
-                              device=args.device)
-    except NotImplementedError as e:
-        print(f"[serve] {args.arch}: {e}", file=sys.stderr)
-        return 2
+    tokens, stats = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
+                          gen=args.gen, temperature=args.temperature,
+                          device=args.device)
     print(f"[serve] {args.arch}{' (reduced)' if args.reduced else ''}: "
           f"generated {tuple(tokens.shape)} tokens")
     print(f"[serve] prefill {stats['prefill_s']:.3f}s, "

@@ -1,7 +1,8 @@
-"""Model zoo in PyTorch: layers, attention, MoE, assembly (serving).
+"""Model zoo in PyTorch: layers, attention, MoE, SSM, xLSTM, assembly.
 
-Port of ``repro.models`` for the attention architectures; the training
-entry point ``loss_fn`` and the SSM/xLSTM layers are not ported yet.
+Port of ``repro.models``: every assigned architecture builds, counts,
+prefills and decodes; ``loss_fn`` is the forward next-token loss (the
+training steps that take its gradient are not ported yet).
 """
 from repro_torch.models.params import count_params, param_shapes
 from repro_torch.models.transformer import (
@@ -9,10 +10,11 @@ from repro_torch.models.transformer import (
     forward,
     init_decode_state,
     init_params,
+    loss_fn,
     prefill,
 )
 
 __all__ = [
-    "decode_step", "forward", "init_decode_state", "init_params", "prefill",
-    "count_params", "param_shapes",
+    "decode_step", "forward", "init_decode_state", "init_params", "loss_fn",
+    "prefill", "count_params", "param_shapes",
 ]

@@ -1,8 +1,10 @@
-"""Model assembly: superblock stacks, prefill and decode paths, for the
-attention architectures.
+"""Model assembly: superblock stacks, prefill and decode paths, for every
+assigned architecture family.
 
-Port of ``repro.models.transformer`` for layer kind ``attn`` (dense, MoE,
-local/global, prefix-LM, encoder-decoder).  A model is one ``ParamTree``
+Port of ``repro.models.transformer``: layer kinds ``attn`` (dense, MoE,
+local/global, prefix-LM, encoder-decoder), ``mamba`` (jamba's selective
+SSM, with a dense or MoE FFN), ``mlstm`` and ``slstm`` (xLSTM blocks, which
+carry their own projections).  A model is one ``ParamTree``
 whose children carry the reference's names: ``embed``, ``ln_f``,
 ``blocks`` (``n_blocks`` superblocks, each a ``ModuleList`` over the
 pattern's positions, where the reference stacks every leaf on a leading
@@ -11,11 +13,11 @@ superblocks run in a Python loop where the reference scans them.
 
 Two execution modes share one layer dispatcher:
   * ``prefill`` -- full-sequence compute (``forward(collect=True)``) that
-                   also fills the decode caches,
-  * ``decode``  -- one token against the caches (``serve_step``).
-
-Layer kinds ``mamba``, ``mlstm`` and ``slstm`` are not ported yet: building
-a model that has one raises ``NotImplementedError`` (ROADMAP Queue A 9).
+                   also fills the decode caches (``forward`` alone gives
+                   ``loss_fn``'s next-token loss),
+  * ``decode``  -- one token against the caches (``serve_step``): KV
+                   caches for attention layers, recurrent states (SSM,
+                   mLSTM, sLSTM) for the others.
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import (
     ParamTree, embed_init, init_dense, matmul_f32, mlp_apply, mlp_init,
@@ -34,16 +38,9 @@ from repro_torch.models.layers import (
 )
 
 __all__ = [
-    "init_params", "forward", "init_decode_state", "decode_step", "prefill",
+    "init_params", "forward", "loss_fn", "chunked_xent", "init_decode_state",
+    "decode_step", "prefill",
 ]
-
-
-def _check_ported(cfg) -> None:
-    for spec in cfg.block_pattern + cfg.tail_pattern:
-        if spec.kind != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind {spec.kind!r} is not ported to "
-                f"PyTorch yet (models/ssm, models/xlstm: ROADMAP Queue A 9)")
 
 
 # ---------------------------------------------------------------------------
@@ -54,10 +51,19 @@ def _layer_init(gen, cfg, spec, decoder: bool, device) -> ParamTree:
     d = cfg.d_model
     zeros = lambda: torch.zeros((d,), dtype=torch.float32, device=device)
     p: Dict[str, Any] = {"ln1": zeros()}
-    p.update(attn_mod.attn_init(gen, cfg, device))
-    if decoder and cfg.cross_attention:
-        p["lnx"] = zeros()
-        p["cross"] = ParamTree(**attn_mod.attn_init(gen, cfg, device))
+    if spec.kind == "attn":
+        p.update(attn_mod.attn_init(gen, cfg, device))
+        if decoder and cfg.cross_attention:
+            p["lnx"] = zeros()
+            p["cross"] = ParamTree(**attn_mod.attn_init(gen, cfg, device))
+    elif spec.kind == "mamba":
+        p["mamba"] = ssm_mod.ssm_init(gen, cfg, device)
+    elif spec.kind == "mlstm":
+        p["mlstm"] = xlstm_mod.mlstm_init(gen, cfg, device)
+    elif spec.kind == "slstm":
+        p["slstm"] = xlstm_mod.slstm_init(gen, cfg, device)
+    else:
+        raise ValueError(spec.kind)
     if spec.has_mlp:
         p["ln2"] = zeros()
         if spec.moe:
@@ -81,7 +87,6 @@ def init_params(gen: Optional[torch.Generator], cfg, *,
     """Random parameters drawn from ``gen`` on its device (or ``device``),
     one tensor at a time in the model dtype.  ``gen=None`` with
     ``device="meta"`` builds the tree without allocating."""
-    _check_ported(cfg)
     device = torch.device(device) if device is not None else gen.device
     dt = model_dtype(cfg)
     d = cfg.d_model
@@ -116,19 +121,36 @@ def _layer_fwd(p, cfg, spec, x, aux, *, enc_mem, mode_override, collect,
                pos0=0):
     """Returns (x, aux, cache_or_None)."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
-    out, kv = attn_mod.attn_apply_train(
-        p, cfg, h, attn_type=spec.attn_type, mode_override=mode_override,
-        pos0=pos0, return_kv=collect,
-    )
-    x = x + out
-    if enc_mem is not None and cfg.cross_attention:
-        hx = rms_norm(x, p.lnx, cfg.norm_eps)
-        xo, xkv = attn_mod.attn_apply_train(
-            p.cross, cfg, hx, kv_memory=enc_mem, return_kv=collect)
-        x = x + xo
-        cache = (kv, xkv) if collect else None
+    cache = None
+    if spec.kind == "attn":
+        out, kv = attn_mod.attn_apply_train(
+            p, cfg, h, attn_type=spec.attn_type, mode_override=mode_override,
+            pos0=pos0, return_kv=collect,
+        )
+        x = x + out
+        if enc_mem is not None and cfg.cross_attention:
+            hx = rms_norm(x, p.lnx, cfg.norm_eps)
+            xo, xkv = attn_mod.attn_apply_train(
+                p.cross, cfg, hx, kv_memory=enc_mem, return_kv=collect)
+            x = x + xo
+            cache = (kv, xkv) if collect else None
+        else:
+            cache = (kv, None) if collect else None
+    elif spec.kind == "mamba":
+        out, cache = ssm_mod.ssm_apply_train(p.mamba, cfg, h,
+                                             return_state=collect)
+        x = x + out
+    elif spec.kind == "mlstm":
+        out = xlstm_mod.mlstm_apply_train(p.mlstm, cfg, h)
+        if collect:
+            cache = xlstm_mod.mlstm_prefill_state(p.mlstm, cfg, h)
+        return x + out, aux, cache
+    elif spec.kind == "slstm":
+        out, cache = xlstm_mod.slstm_apply_train(p.slstm, cfg, h,
+                                                 return_state=collect)
+        return x + out, aux, cache
     else:
-        cache = (kv, None) if collect else None
+        raise ValueError(spec.kind)
     if spec.has_mlp:
         h2 = rms_norm(x, p.ln2, cfg.norm_eps)
         if spec.moe:
@@ -210,12 +232,64 @@ def _unembed(params, cfg, x):
     return matmul_f32(x, w.to(x.dtype))
 
 
+def chunked_xent(params, cfg, x, labels, *, chunk: int = 512):
+    """Mean next-token NLL.  labels < 0 are ignored.  x: (B, S, d).  The
+    f32 logits are made one chunk of positions at a time (the largest
+    divisor of S up to ``chunk``), never for the whole sequence."""
+    b, s, _ = x.shape
+    c = min(chunk, s)
+    while s % c:  # e.g. vlm prefix makes S=4352: largest divisor <= chunk
+        c -= 1
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, c):
+        lc = labels[:, c0: c0 + c]
+        logits = _unembed(params, cfg, x[:, c0: c0 + c])      # (b, c, V) f32
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1,
+                           torch.clamp_min(lc, 0)[..., None].long())[..., 0]
+        mask = (lc >= 0).float()
+        tot = tot + torch.sum((lse - tgt) * mask)
+        cnt = cnt + torch.sum(mask)
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def loss_fn(params, cfg, batch):
+    """batch: tokens (B,S) int, plus optional prefix_embeds / enc_frames.
+    Returns (loss + aux, {"xent": loss, "aux": aux})."""
+    tokens = batch["tokens"]
+    x, aux, _, _ = forward(
+        params, cfg, tokens,
+        prefix_embeds=batch.get("prefix_embeds"),
+        enc_frames=batch.get("enc_frames"),
+    )
+    prefix = (0 if batch.get("prefix_embeds") is None
+              else batch["prefix_embeds"].shape[1])
+    # next-token labels; never predict across the prefix boundary
+    labels = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)],
+                       dim=1)
+    if prefix:
+        pad = torch.full((tokens.shape[0], prefix), -1, dtype=labels.dtype,
+                         device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    loss = chunked_xent(params, cfg, x, labels)
+    return loss + aux, {"xent": loss, "aux": aux}
+
+
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
 
 def _layer_cache_template(cfg, spec, batch, max_len, dtype, with_cross,
                           device):
+    if spec.kind == "mamba":
+        return ssm_mod.init_ssm_state(cfg, batch, device)
+    if spec.kind == "mlstm":
+        return xlstm_mod.init_mlstm_state(cfg, batch, device)
+    if spec.kind == "slstm":
+        return xlstm_mod.init_slstm_state(cfg, batch, device)
+    if spec.kind != "attn":
+        raise ValueError(spec.kind)
     self_c = attn_mod.init_kv_cache(cfg, batch, max_len, spec.attn_type,
                                     dtype, device, quant=cfg.kv_quant)
     cross_c = (
@@ -230,9 +304,9 @@ def init_decode_state(cfg, batch: int, max_len: int,
                       device=None) -> Dict[str, Any]:
     """Zeroed decode state on ``device`` (``cuda`` unless told otherwise):
     ``pos`` a 0-d int32 tensor, ``blocks`` a list over superblocks of
-    tuples over the pattern of ``(self cache, cross cache or None)``,
-    ``tail`` such a tuple, ``enc_mem`` for encoder-decoder configs."""
-    _check_ported(cfg)
+    tuples over the pattern, each an attention layer's ``(self cache, cross
+    cache or None)`` or a recurrent layer's state, ``tail`` such a tuple,
+    ``enc_mem`` for encoder-decoder configs."""
     device = resolve_device(device)
     dtype = model_dtype(cfg)
     with_cross = cfg.cross_attention
@@ -257,16 +331,29 @@ def init_decode_state(cfg, batch: int, max_len: int,
 
 
 def _layer_decode(p, cfg, spec, x1, cache, pos):
-    self_c, cross_c = cache
     h = rms_norm(x1, p.ln1, cfg.norm_eps)
-    out, self_c = attn_mod.attn_apply_decode(
-        p, cfg, h, self_c, pos, attn_type=spec.attn_type)
-    x1 = x1 + out
-    if cross_c is not None:
-        hx = rms_norm(x1, p.lnx, cfg.norm_eps)
-        xo, _ = attn_mod.attn_apply_decode(
-            p.cross, cfg, hx, self_c, pos, kv_memory=cross_c)
-        x1 = x1 + xo
+    if spec.kind == "attn":
+        self_c, cross_c = cache
+        out, self_c = attn_mod.attn_apply_decode(
+            p, cfg, h, self_c, pos, attn_type=spec.attn_type)
+        x1 = x1 + out
+        if cross_c is not None:
+            hx = rms_norm(x1, p.lnx, cfg.norm_eps)
+            xo, _ = attn_mod.attn_apply_decode(
+                p.cross, cfg, hx, self_c, pos, kv_memory=cross_c)
+            x1 = x1 + xo
+        new_cache = (self_c, cross_c)
+    elif spec.kind == "mamba":
+        out, new_cache = ssm_mod.ssm_apply_decode(p.mamba, cfg, h, cache)
+        x1 = x1 + out
+    elif spec.kind == "mlstm":
+        out, new_cache = xlstm_mod.mlstm_apply_decode(p.mlstm, cfg, h, cache)
+        return x1 + out, new_cache
+    elif spec.kind == "slstm":
+        out, new_cache = xlstm_mod.slstm_apply_decode(p.slstm, cfg, h, cache)
+        return x1 + out, new_cache
+    else:
+        raise ValueError(spec.kind)
     if spec.has_mlp:
         h2 = rms_norm(x1, p.ln2, cfg.norm_eps)
         if spec.moe:
@@ -274,15 +361,16 @@ def _layer_decode(p, cfg, spec, x1, cache, pos):
         else:
             y = mlp_apply(p.mlp, h2, cfg.mlp_kind)
         x1 = x1 + y
-    return x1, (self_c, cross_c)
+    return x1, new_cache
 
 
 def decode_step(params, cfg, state, token):
     """One serve step: token (B, 1) int -> (logits (B, 1, V) f32, new state).
 
     The KV caches are updated in place (the new state shares them with
-    ``state``, as the reference's serve loop donates its state); ``pos``
-    is a new 0-d tensor, and nothing here reads it on the host.
+    ``state``, as the reference's serve loop donates its state); the
+    recurrent states and ``pos`` are new tensors, and nothing here reads
+    ``pos`` on the host.
     """
     pos = state["pos"]
     x1 = _embed_tokens(params, cfg, token, pos0=pos)
@@ -364,6 +452,8 @@ def _fill_kv(cfg, attn_type, template, got, s_total):
 
 
 def _fill_cache(cfg, spec, template, got, s_total):
+    if spec.kind != "attn":
+        return got  # recurrent states pass through
     kv, xkv = got
     self_t, cross_t = template
     self_c = _fill_kv(cfg, spec.attn_type, self_t, kv, s_total)

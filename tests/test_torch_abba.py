@@ -11,6 +11,7 @@ Fig. 5 benchmark's settings (4 series x 1000 points, seed 11, ``n_max=256``,
 and ``tests/test_system.py``'s ABBA tests, a constant stream and a stream of
 two points.
 """
+import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import dataclasses
 import functools
 

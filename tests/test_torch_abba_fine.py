@@ -6,6 +6,7 @@ piece buffer fills (``n_pieces = n_max``) on the sensor and hemo families
 and the k-search grows to ``k_max`` there, the longest searches of the
 sweep.  Every field of ``AbbaResult`` exactly equal to the reference's.
 """
+import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import pytest
 
 from repro.data.synthetic import FAMILIES, make_dataset

@@ -9,6 +9,7 @@ reference's keys; the transport's recorder flags reach its server.
 ``--devices`` shards the slot table (stream, transport, workload) or the
 fleet slab (``repro_torch.launch.fleet``): host shards on the CPU, and the
 counters and fingerprint do not depend on it."""
+import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import json
 import sys
 import warnings

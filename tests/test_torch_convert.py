@@ -1,6 +1,7 @@
 """``repro_torch.convert``: the state carried across from the JAX package
 lands on the card unless the caller asks for the CPU.  Needs no JAX; the
 JAX-side round trip is in ``tests/test_torch_stream.py``."""
+import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -3,6 +3,7 @@
 Same inputs (numpy, from a seed) through both packages; integer and
 elementwise float outputs must be bitwise equal, codec bytes identical.
 """
+import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -5,6 +5,7 @@ bitwise on every ``DigitizerState`` leaf (the key as its key data) and on
 every emitted symbol, at the ``TestDigitizeSpanTable`` shapes of
 ``tests/test_kernels.py`` and at the service's test size (n_max 64).
 """
+import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

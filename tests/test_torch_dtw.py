@@ -13,6 +13,7 @@ equal to the plain version; that test needs no JAX.  On the CPU
 lane shuffles, the boundary buffers and corners, skipped out-of-band tiles,
 ragged edges) with small tiles, and is held bitwise to the plain version.
 """
+import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import numpy as np
 import pytest
 import torch

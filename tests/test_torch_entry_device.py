@@ -3,6 +3,7 @@ asks for the CPU: ``symed_encode``, ``symed_finish``, ``symed_batch``,
 ``symed_encode_chunk``, ``symed_receive_chunk`` and the transport's
 ``SenderClient`` raise without a card by default, and run where ``device``
 says, whatever device their inputs came on.  Needs no JAX."""
+import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import threading
 
 import numpy as np

@@ -14,6 +14,7 @@ fused multiply-adds, and on a card (``-m cuda``) the kernel itself is held
 to the plain version within the same tolerances and to the replay bit for
 bit.  Those tests need no JAX.
 """
+import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import re
 
 import numpy as np

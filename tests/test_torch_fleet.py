@@ -10,6 +10,7 @@ process) at shard widths 2 and 8, with crafted streams that show the
 sender's EWMV rounding.  The argument checks carry the reference's
 messages (the fleet CLI's tests are in ``test_torch_cli.py``).
 """
+import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import hashlib
 import json
 import os
@@ -208,7 +209,7 @@ def test_four_shards_match_the_reference_on_four_devices(tmp_path):
     for width in (2, 8):
         np.save(f"{prefix}_{width}.npy", _crafted_slab(width))
     env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
-           "JAX_PLATFORMS": "cpu",
+           "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1",
            "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD, json.dumps(PARAMS), prefix],

@@ -11,6 +11,7 @@ a warp of 32 rows, then the warps in order):
 kernels themselves run only on a card (``-m cuda``); those tests need no
 JAX, so they also run on a GPU machine without the reference installed.
 """
+import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import numpy as np
 import pytest
 import torch

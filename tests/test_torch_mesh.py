@@ -5,6 +5,7 @@ devices out (row-major over the named axes) and raises the reference's
 messages.  On the CPU every shard is a host shard; on CUDA the shards go
 round-robin over the cards (checked here with a stubbed card count).
 """
+import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import types
 
 import numpy as np

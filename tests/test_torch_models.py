@@ -1,16 +1,18 @@
 """The port's LM serving path against the JAX reference, on carried weights.
 
-For each attention architecture's ``reduced()`` config, the reference's
+For each architecture's ``reduced()`` config, the reference's
 parameters (``repro.models.init_params``) are carried into the port with
 ``convert.params_from_numpy``; both packages then run ``forward``,
 ``prefill`` and 4 greedy ``decode_step``s on the same tokens and frontend
 inputs.  Activations, logits and every cache must agree within
-``1e-4 * max(max|ref|, 1)`` and the greedy tokens exactly.  Also: the
+``1e-4 * max(max|ref|, 1)`` and the greedy tokens exactly (the caches:
+attention's KV caches and the SSM, mLSTM and sLSTM states).  Also: the
 teacher-forcing contract of ``tests/test_models.py`` on the port alone,
 the blockwise attention in each mask mode at small chunks, MoE with drops
 and several groups, the int8 KV cache, parameter accounting and the
 parameter tree's names, shapes and dtypes.
 """
+import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import dataclasses
 import functools
 
@@ -25,7 +27,9 @@ from repro.models import attention as jattn
 from repro.models import count_params as jax_count
 from repro.models import decode_step as jdecode
 from repro.models import forward as jforward
+from repro.models import init_decode_state as jinit_state
 from repro.models import init_params as jinit
+from repro.models import loss_fn as jloss
 from repro.models import moe as jmoe
 from repro.models import param_shapes as jax_shapes
 from repro.models import prefill as jprefill
@@ -33,15 +37,14 @@ from repro_torch.configs import ARCHS as TARCHS
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.models import (count_params, decode_step, forward,
-                                init_decode_state, init_params,
+                                init_decode_state, init_params, loss_fn,
                                 param_shapes, prefill)
 from repro_torch.models import attention as tattn
 from repro_torch.models import moe as tmoe
 from repro_torch.models.layers import ParamTree
 
-ATTN_ARCHS = sorted(a for a in ARCHS
-                    if not a.startswith(("jamba", "xlstm")))
-UNPORTED = ["jamba-1.5-large-398b", "xlstm-125m"]
+ALL_ARCHS = sorted(ARCHS)
+RECURRENT = ["jamba-1.5-large-398b", "xlstm-125m"]
 N0, STEPS, BATCH = 40, 4, 2  # past the reduced window=32: ring caches
 REL = 1e-4
 
@@ -149,7 +152,7 @@ def _run(arch, kv_quant=False):
     return ref, got
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 class TestArchParity:
     def test_forward(self, arch):
         ref, got = _run(arch)
@@ -236,7 +239,7 @@ class TestArchParity:
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_count_params_full_configs(arch):
     cfg, tcfg = ARCHS[arch], TARCHS[arch]
     assert count_params(tcfg) == jax_count(cfg)
@@ -255,7 +258,7 @@ def test_smoke_pins_reference_param_counts():
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    assert sorted(smoke.REF_PARAM_COUNTS) == ATTN_ARCHS
+    assert sorted(smoke.REF_PARAM_COUNTS) == ALL_ARCHS
     for arch, n in smoke.REF_PARAM_COUNTS.items():
         assert jax_count(ARCHS[arch]) == n, arch
 
@@ -290,15 +293,45 @@ def test_bf16_params_round_trip():
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_layers_raise(arch):
-    cfg = TARCHS[arch].reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 9"):
-        init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 9"):
-        count_params(TARCHS[arch])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 9"):
-        init_decode_state(cfg, 1, 8, device="cpu")
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_archs_build(arch):
+    """The archs with SSM and xLSTM layers build, count and hold decode
+    states: ``init_decode_state``'s leaves zero, with the reference's
+    names, shapes and dtypes."""
+    cfg, tcfg = ARCHS[arch].reduced(), TARCHS[arch].reduced()
+    params = init_params(torch.Generator().manual_seed(0), tcfg)
+    assert sum(p.numel() for p in params.parameters()) == jax_count(cfg)
+    assert count_params(TARCHS[arch]) == jax_count(ARCHS[arch])
+    state = init_decode_state(tcfg, 2, 8, device="cpu")
+    want = _flat({k: v for k, v in jinit_state(cfg, 2, 8).items()
+                  if k != "pos"})
+    have = dict(_flat({k: v for k, v in _port_state_as_ref(state).items()
+                       if k != "pos"}))
+    assert sorted(have) == sorted(p for p, _ in want)
+    for path, w in want:
+        assert have[path].dtype == w.dtype, path
+        np.testing.assert_array_equal(have[path], w)
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "paligemma-3b",
+                                  "whisper-small", "xlstm-125m"])
+def test_loss_fn(arch):
+    """The next-token loss on carried weights (MoE's aux, a VLM prefix
+    masked out of the labels, the encoder, the recurrent layers): loss,
+    xent and aux within 1e-4 x max(|ref|, 1)."""
+    cfg, tcfg = ARCHS[arch].reduced(), TARCHS[arch].reduced()
+    jp = _jinit(jax.random.key(0), cfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    rng = np.random.default_rng(6)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (BATCH, 24)).astype(
+        np.int32), **_extras(cfg, rng)}
+    want, wparts = jax.jit(lambda p, b: jloss(p, cfg, b, remat=False))(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.inference_mode():
+        got, gparts = loss_fn(tp, tcfg, _t(batch))
+    _close(got.numpy(), np.asarray(want), "loss")
+    for k in ("xent", "aux"):
+        _close(gparts[k].numpy(), np.asarray(wparts[k]), k)
 
 
 @pytest.mark.parametrize("mode", ["causal", "local", "prefix", "bidir"])

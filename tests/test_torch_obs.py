@@ -8,6 +8,7 @@ Then the wiring: a loopback ``TransportServer`` of the port scraped over
 HTTP agrees with the server's own report, ``obs=False`` changes no delta,
 and two servers never collide on their callback series.
 """
+import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import json
 import threading
 import urllib.request

@@ -10,6 +10,7 @@ its own one-shot ``symed_encode`` (the torch counterparts of
 cases of ``tests/test_stream_service.py``.  The tests against the
 reference skip where JAX is not installed.
 """
+import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -1,4 +1,5 @@
 """``repro_torch.core.prng`` against ``jax.random`` (threefry2x32), bit for bit."""
+import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

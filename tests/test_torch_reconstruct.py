@@ -5,6 +5,7 @@ Pieces and symbols come from the reference's ``symed_encode`` on the
 from the same numpy inputs.  Integers must be exactly equal, floats bitwise:
 the port writes out the reference's compiled prefix-sum order.
 """
+import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import functools
 
 import jax

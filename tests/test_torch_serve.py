@@ -7,6 +7,7 @@ reduced serve loop with a generation longer than the prompt, hold a greedy
 loop (``prefill`` plus ``make_serve_step``) to the reference's token for
 token on carried weights, and drive the CLI in process.
 """
+import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import dataclasses
 
 import jax
@@ -26,7 +27,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.train.steps import make_serve_step
 
-ATTN_ARCHS = sorted(a for a in ARCHS if not a.startswith(("jamba", "xlstm")))
+ALL_ARCHS = sorted(ARCHS)
 
 
 @pytest.mark.parametrize("arch,expect_prefix", [
@@ -78,7 +79,7 @@ def test_serve_is_deterministic_and_greedy():
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_greedy_loop_matches_reference(arch):
     """``prefill`` then ``make_serve_step`` on weights carried from the
     reference: the greedy token streams are equal."""
@@ -146,11 +147,14 @@ def test_main_prints_three_lines(capsys):
 
 
 @pytest.mark.parametrize("arch", ["xlstm-125m", "jamba-1.5-large-398b"])
-def test_main_unported_arch_exits_nonzero(arch, capsys):
-    rc = tserve.main(["--device", "cpu", "--arch", arch, "--gen", "2"])
-    assert rc != 0
-    err = capsys.readouterr().err
-    assert "ROADMAP Queue A 9" in err and arch in err
+def test_main_recurrent_arch_exits_0(arch, capsys):
+    """The archs with SSM and xLSTM layers serve through the CLI."""
+    rc = tserve.main(["--device", "cpu", "--arch", arch, "--reduced",
+                      "--gen", "2"])
+    out = capsys.readouterr().out.splitlines()
+    assert rc == 0
+    assert out[0] == f"[serve] {arch} (reduced): generated (4, 2) tokens"
+    assert len(out) == 3
 
 
 def test_main_defaults_to_cuda():
@@ -185,7 +189,7 @@ def _greedy(params, cfg, prompts, steps):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_reduced_card_against_cpu(arch):
     """chip_smoke.py phase 10 (d) at test size: the reduced config in f32 on
     the card against the port on the CPU, the same weights: logits within
@@ -206,7 +210,7 @@ def test_reduced_card_against_cpu(arch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_bf16_card_deterministic(arch):
     """chip_smoke.py phase 10 (c) at test size: the reduced widths in bf16
     on the card; two runs from one seed bitwise equal, tokens in range,

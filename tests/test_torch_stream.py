@@ -7,6 +7,7 @@ labels, endpoints and ``n_new`` exactly, endpoints bitwise.  Each closing
 ``out`` must match leaf by leaf.  The port's own contract is checked too:
 concatenated deltas are bitwise equal to its one-shot ``symed_encode``.
 """
+import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import os
 import subprocess
 import sys
@@ -607,8 +608,10 @@ def test_port_imports_no_jax():
     recorder, the workload harness, the fleet runtime, the mesh helpers,
     the models, the configs and the serve CLI module, one CPU service round
     with the DTW monitor on, one compressed-in round, one replay of a
-    scenario, one sharded fleet run, one ABBA encode and one reduced serve
-    leave jax and every module of the JAX package out of ``sys.modules``."""
+    scenario, one sharded fleet run, one ABBA encode, one reduced serve of
+    olmoe-1b-7b, xlstm-125m and jamba-1.5-large-398b each, and the
+    ``data`` and ``kernels`` packages leave jax and every module of the
+    JAX package out of ``sys.modules``."""
     code = (
         "import sys, numpy as np\n"
         "import repro_torch, repro_torch.core\n"
@@ -649,12 +652,19 @@ def test_port_imports_no_jax():
         "assert int(res.n_pieces) > 0\n"
         "assert repro_torch.launch.serve.main(['--device', 'cpu', '--gen',"
         " '3', '--prompt-len', '4', '--batch', '1']) == 0\n"
+        "for arch in ('xlstm-125m', 'jamba-1.5-large-398b'):\n"
+        "    assert repro_torch.launch.serve.main(['--device', 'cpu',"
+        " '--arch', arch, '--reduced', '--gen', '2', '--prompt-len', '4',"
+        " '--batch', '1']) == 0\n"
+        "from repro_torch.data import make_fleet\n"
+        "import repro_torch.kernels\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print('BAD', bad)\n"
         "assert not bad, bad\n"
     )
-    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
+           "OMP_NUM_THREADS": "1"}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, cwd=str(REPO), timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -10,6 +10,7 @@ cross-talk runs (the port's sender against the reference's server, the
 reference's sender against the port's server) whose delta streams are both
 byte for byte the reference's own (its ``symed_encode`` and sender).
 """
+import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import struct
 import threading
 

@@ -10,6 +10,7 @@ against ``symed_encode``.  Over the loopback transport the
 schedule-determined counters and the delta hash equal the in-process
 replay's.  The workload CLI's exit codes are checked in process.
 """
+import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import json
 import warnings
 
