@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of SymED on one GPU and check it.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``.  Ten phases,
-each raising on failure:
+Run from the root of a checkout: ``python3 chip_smoke.py``.  Eleven
+phases, each raising on failure:
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
 2. build: the k-means, DTW and EWMA kernels from
@@ -124,14 +124,40 @@ each raising on failure:
    another order at another row count), the memory the call adds under
    ``MOE_GROUPS_BYTES``; (d) the 10 reduced configs and one int8-cache
    variant in f32 on the card against the CPU port on the same weights:
-   logits within 1e-4 x max(max|cpu|, 1), greedy tokens equal.
+   logits within 1e-4 x max(max|cpu|, 1), greedy tokens equal;
+11. training: (a) ``python -m repro_torch.launch.train`` at its defaults
+   (symlm-100m at full size, f32, batch 8, seq 256) with a checkpoint
+   every ``TRAIN_FAIL`` steps, failed at step ``TRAIN_FAIL`` (exit
+   non-zero), then run again to ``TRAIN_STEPS``, resuming from the
+   checkpoint: every logged loss finite, the last three's mean below the
+   first three's by 0.1; its ms per step, tokens/s, peak memory and the
+   seconds each batch waited on the pipeline printed (the two runs go in
+   a background thread beside phases 9 and 10, all host-bound); (b) xlstm-125m
+   at its published config in bf16, 3 AdamW steps in process: finite
+   loss and grad norm, every leaf moved, 155,634,512 parameters, ms per
+   step and peak memory; then symlm-100m the same way (the train step
+   timed without the pipeline beside it); (c) one ``make_train_step`` step of a dense, an
+   MoE and two recurrent reduced configs in f32 on the card against the
+   CPU port on the same state and batch: loss and grad norm within 1e-5
+   relative, every gradient within 1e-4 x max(max|g|, 1e-6), parameters
+   and moments after it within 1e-6 x max(|cpu|, 1) except where the
+   gradient is small (at most 0.1% of a leaf); (d) the compressed step,
+   two pods on the one card: the pods' int8 mean of the gradients within
+   each leaf's quantization step (amax / 127) plus the gradient tolerance
+   of the whole batch's gradients, the loss the plain step's, one
+   error-feedback buffer per pod; (e) ``examples/torch_anomaly_monitor.py``
+   on the card flags the injected straggler (host 7, steps 200-220) and
+   the hang (host 3, step 350).  The kernels' launches are counted in the
+   train steps of (b)-(d) (none) and in (e) (the Lloyd kernel).
 
 The last two lines are a JSON summary of every kernel (``launches`` from
-phase 6, ``launches_abba`` from phase 10 (a)) and ``{"ok": true,
+phase 6, ``launches_abba`` from phase 10 (a), ``launches_train_step``
+and ``launches_train_monitor`` from phase 11) and ``{"ok": true,
 "device": {...}}``.
 
-``python3 chip_smoke.py --fleet-depths 1024,1280`` builds the kernels and
-runs only phase 9, (a)-(b) once at each depth (points per stream) and
+``python3 chip_smoke.py --train-only`` builds the kernels and runs only
+phase 11.  ``python3 chip_smoke.py --fleet-depths 1024,1280`` builds the
+kernels and runs only phase 9, (a)-(b) once at each depth (points per stream) and
 (c)-(d) once, printing each part's wall time: how the depth of (a)-(b)
 was chosen.  It prints no JSON summary.
 """
@@ -239,6 +265,20 @@ KV_QUANT_ARCH = "gemma3-27b"  # (d)'s int8-cache variant: ring and global
 MOE_GROUPS_SHAPE, MOE_GROUPS_BYTES = (4, 8192), 8 * 2**30
 LLOYD_ITERS = 10  # the paper's lloyd_iters
 LLOYD_EXTRA = [(2, 30000, 2, 8)]  # pieces too many for shared memory
+# phase 11: the train CLI at its defaults (symlm-100m, f32, batch 8, seq
+# 256) for TRAIN_STEPS, failed at TRAIN_FAIL (a checkpoint every
+# TRAIN_FAIL steps) and resumed; every loss logged.  Each batch waits
+# 22-26 s on the pipeline (about 1.35 slabs of 32 x 1024 points), and
+# each run spends about 100 s more in start-up, its first batch (two
+# slabs) and the batcher's last slab (PERF.md, training): the two runs
+# take about 330 s, so they run beside phases 9 and 10
+TRAIN_STEPS, TRAIN_FAIL = 6, 3
+TRAIN_BF16 = ("xlstm-125m", 8, 256, 3)  # (b): arch, batch, seq, steps
+# (c): a dense, an MoE and two recurrent reduced configs, card against CPU
+TRAIN_REDUCED = ("codeqwen1.5-7b", "olmoe-1b-7b", "jamba-1.5-large-398b",
+                 "xlstm-125m")
+TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_OPT_REL = 1e-5, 1e-4, 1e-6
+TRAIN_AT_STEP = 5  # (c)-(d) step from here: past warmup's lr of 0 at step 0
 
 
 _T0 = time.perf_counter()
@@ -2265,6 +2305,385 @@ def reduced_phase(torch, dev):
               f"scale, greedy tokens equal", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: training
+# ---------------------------------------------------------------------------
+
+class TrainCLI:
+    """Phase 11 (a)'s two runs of the train CLI, one after the other in a
+    background thread: the smoke starts them before phase 9 and reads
+    them in phase 11, so they overlap phases 9 and 10 (all host-bound;
+    the card has room for both).  ``stop`` kills a run still going."""
+
+    def __init__(self):
+        import tempfile
+        import threading
+
+        self.ckpt = tempfile.mkdtemp(prefix="smoke_train_")
+        self.runs, self.saved, self.error = [], [], None
+        self._proc, self._stopped = None, False
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _one(self, args):
+        env = {**os.environ,
+               "PYTHONPATH": os.pathsep.join(
+                   [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                 if p])}
+        t0 = time.perf_counter()
+        self._proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", *args],
+            cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        out, err = self._proc.communicate(timeout=600)
+        self.runs.append((self._proc.returncode, out, err,
+                          time.perf_counter() - t0))
+
+    def _run(self):
+        common = ["--steps", str(TRAIN_STEPS), "--ckpt-dir", self.ckpt,
+                  "--ckpt-every", str(TRAIN_FAIL), "--log-every", "1"]
+        try:
+            self._one(common + ["--fail-at-step", str(TRAIN_FAIL)])
+            self.saved = sorted(p.name for p in Path(self.ckpt).glob("ckpt_*"))
+            if not self._stopped:
+                self._one(common)
+        except BaseException as e:  # read in result()
+            self.error = e
+
+    def result(self):
+        self._thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.runs, self.saved
+
+    def stop(self):
+        import shutil
+
+        self._stopped = True
+        if self._proc is not None and self._proc.poll() is None:
+            self._proc.kill()
+        self._thread.join(timeout=60)
+        shutil.rmtree(self.ckpt, ignore_errors=True)
+
+
+def train_cli_phase(cli: TrainCLI):
+    """Phase 11 (a): ``python -m repro_torch.launch.train`` at its defaults
+    (symlm-100m at full size, f32, batch 8, seq 256, lr 3e-4) for
+    ``TRAIN_STEPS`` steps with a checkpoint directory: failed at step
+    ``TRAIN_FAIL`` (exit non-zero), then run again, resuming from the
+    checkpoint; every loss finite, the last three's mean below the first
+    three's by 0.1 (``tests/test_system.py``'s rule)."""
+    import math
+    import re
+
+    t0 = time.perf_counter()
+    runs, saved = cli.result()
+    waited = time.perf_counter() - t0
+    cli.stop()
+    for rc, out, _, _ in runs:
+        print("\n".join("train | " + ln for ln in out.splitlines()),
+              flush=True)
+    (rc1, out1, err1, wall1), (rc2, out2, err2, wall2) = runs
+    if rc1 == 0 or f"simulated node failure at step {TRAIN_FAIL}" not in err1:
+        raise AssertionError(f"train --fail-at-step {TRAIN_FAIL}: rc {rc1}"
+                             f"\n{err1[-2000:]}")
+    if rc2 != 0:
+        raise AssertionError(f"train resume: rc {rc2}\n{err2[-2000:]}")
+    if f"[train] resumed from step {TRAIN_FAIL}" not in out2:
+        raise AssertionError(f"the second run did not resume from step "
+                             f"{TRAIN_FAIL} (checkpoints {saved})")
+    pat = re.compile(r"\[train\] step (\d+): loss=(\S+) grad_norm=(\S+)")
+    logged = [(int(m.group(1)), float(m.group(2)), float(m.group(3)))
+              for out in (out1, out2) for m in pat.finditer(out)]
+    steps = [s for s, _, _ in logged]
+    if steps != list(range(TRAIN_STEPS)):
+        raise AssertionError(f"logged steps {steps}")
+    losses = [l for _, l, _ in logged]
+    if not all(math.isfinite(v) for _, l, g in logged for v in (l, g)):
+        raise AssertionError(f"non-finite loss or grad norm: {logged}")
+    head, tail = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    if not tail < head - 0.1:
+        raise AssertionError(f"loss did not fall: first three logged "
+                             f"{losses[:3]}, last three {losses[-3:]}")
+    timing = [ln for ln in out2.splitlines() if " ms/step after the first" in ln]
+    print(f"train CLI (symlm-100m, f32, batch 8, seq 256): failed at step "
+          f"{TRAIN_FAIL} as asked (checkpoints {saved}, {wall1:.1f} s), "
+          f"resumed from step {TRAIN_FAIL} to {TRAIN_STEPS} ({wall2:.1f} s; "
+          f"phase 11 waited {waited:.1f} s for the two); logged losses "
+          f"{losses}: mean of the first three {head:.4f}, of the last three "
+          f"{tail:.4f}", flush=True)
+    print("train CLI timing (resumed run): " + "; ".join(timing), flush=True)
+
+
+def _trainable_count(params):
+    return sum(p.numel() for p in params.parameters())
+
+
+def _timed_steps(torch, dev, cfg, batch, seq, n):
+    """``n`` AdamW steps of ``cfg`` from seed 0 on random tokens: finite
+    loss and grad norm, every leaf moved.  Returns (parameters, leaves,
+    (loss, grad norm) per step, seconds per step, peak bytes)."""
+    import math
+
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.steps import (init_train_state, make_train_step,
+                                         param_leaves)
+
+    oc = OptConfig(warmup_steps=1, total_steps=10)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(torch.Generator(dev).manual_seed(0), cfg, oc)
+    count = _trainable_count(state["params"])
+    before = {k: v.clone() for k, v in param_leaves(state["params"]).items()}
+    step = make_train_step(cfg, oc)
+    gen = torch.Generator(dev).manual_seed(1)
+    times, logs = [], []
+    for _ in range(n):
+        toks = torch.randint(0, cfg.vocab, (batch, seq + 1), device=dev,
+                             generator=gen, dtype=torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, {"tokens": toks})
+        loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
+        times.append(time.perf_counter() - t0)
+        logs.append((loss, gn))
+        if not (math.isfinite(loss) and math.isfinite(gn)):
+            raise AssertionError(f"{cfg.name}: loss {loss}, grad norm {gn}")
+    after = param_leaves(state["params"])
+    still = [k for k, v in before.items() if torch.equal(v, after[k])]
+    if still:
+        raise AssertionError(f"{cfg.name}: leaves that did not move: {still}")
+    return count, len(before), logs, times, torch.cuda.max_memory_allocated()
+
+
+def train_bf16_phase(torch, dev):
+    """Phase 11 (b): xlstm-125m at its published config in bf16, in
+    process: ``TRAIN_BF16`` AdamW steps; finite loss and grad norm, every
+    leaf moved, the reference's parameter count.  Then the train CLI's
+    symlm-100m (f32, batch 8, seq 256) the same way, timed without the
+    pipeline beside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import cli_config
+
+    arch, batch, seq, n = TRAIN_BF16
+    for cfg in (get_config(arch), cli_config(None, False)):
+        count, leaves, logs, times, peak = _timed_steps(torch, dev, cfg,
+                                                        batch, seq, n)
+        if count != REF_PARAM_COUNTS.get(cfg.name, cfg.param_count()):
+            raise AssertionError(f"{cfg.name}: {count} parameters")
+        print(f"{cfg.name} {cfg.dtype} at full width and depth ({count} "
+              f"parameters, batch {batch}, seq {seq}): {n} AdamW steps, "
+              f"(loss, grad norm) {logs}, every one of {leaves} leaves "
+              f"moved; {1e3 * sum(times[1:]) / (n - 1):.1f} ms/step after "
+              f"the first (first {1e3 * times[0]:.1f} ms), "
+              f"{batch * seq * (n - 1) / sum(times[1:]):.0f} tokens/s, "
+              f"torch.cuda.max_memory_allocated {peak} bytes "
+              f"({peak / 2**30:.2f} GiB)", flush=True)
+
+
+def _grads_of(torch, params, cfg, batch):
+    """(loss, reference-named gradients) of ``loss_fn`` at ``params``."""
+    from repro_torch.models import loss_fn
+    from repro_torch.models.params import stack_named
+
+    names, leaves = zip(*params.named_parameters())
+    loss, _ = loss_fn(params, cfg, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return loss.detach(), stack_named(zip(names, grads))
+
+
+def _rel(torch, got, want, floor):
+    err = float((got.double().cpu() - want.double()).abs().max())
+    return err / max(float(want.abs().max()), floor)
+
+
+def _check_step(torch, arch, got, want, cpu_grads):
+    """The acceptance tolerances, card against CPU: loss and grad norm
+    within TRAIN_LOSS_REL relative; every gradient leaf within
+    TRAIN_GRAD_REL x max(max|g|, 1e-6); the parameters and moments after
+    the step within TRAIN_OPT_REL x max(|cpu|, 1) per element, except
+    where |g| is at most 100 x the gradient tolerance (there Adam's m/sqrt(v)
+    turns a sign flip of a near-zero gradient into +-lr): such elements
+    left out, at most 0.1% of a leaf."""
+    from repro_torch.train.steps import param_leaves
+
+    (g_state, g_metrics, g_grads), (w_state, w_metrics) = got, want
+    for k in ("loss", "grad_norm"):
+        rel = abs(float(g_metrics[k]) - float(w_metrics[k])) / max(
+            abs(float(w_metrics[k])), 1e-30)
+        if rel > TRAIN_LOSS_REL:
+            raise AssertionError(f"{arch}: {k} {rel:.3e} relative")
+    worst_g = max(_rel(torch, g_grads[k], g, 1e-6)
+                  for k, g in cpu_grads.items())
+    if worst_g > TRAIN_GRAD_REL:
+        raise AssertionError(f"{arch}: gradients {worst_g:.3e} x scale")
+    gp, wp = param_leaves(g_state["params"]), param_leaves(w_state["params"])
+    worst_p, left = 0.0, 0.0
+    for k, g in cpu_grads.items():
+        small = g.abs() <= 100 * TRAIN_GRAD_REL * max(float(g.abs().max()),
+                                                      1e-6)
+        for got_t, want_t in ((gp[k], wp[k]),
+                              (g_state["opt"]["m"][k], w_state["opt"]["m"][k]),
+                              (g_state["opt"]["v"][k], w_state["opt"]["v"][k])):
+            e = ((got_t.double().cpu() - want_t.double()).abs()
+                 / want_t.double().abs().clamp_min(1.0))
+            out = e > TRAIN_OPT_REL
+            if (out & ~small).any():
+                raise AssertionError(
+                    f"{arch} {k}: {float(e[~small].max()):.3e} x "
+                    "max(|cpu|, 1) where the gradient is not small")
+            left = max(left, float(out.float().mean()))
+            worst_p = max(worst_p, float(e[~out].max()) if (~out).any()
+                          else 0.0)
+    if left > 1e-3:
+        raise AssertionError(f"{arch}: {left:.3%} of a leaf left out")
+    return worst_g, worst_p, left
+
+
+def train_against_cpu_phase(torch, dev):
+    """Phase 11 (c): one ``make_train_step`` step of reduced configs in f32
+    on the card against the CPU port, the same state and batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import (train_state_from_numpy,
+                                     train_state_to_numpy)
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    oc = OptConfig(warmup_steps=2, total_steps=10)
+    for arch in TRAIN_REDUCED:
+        cfg = get_config(arch).reduced()
+        cpu = init_train_state(torch.Generator().manual_seed(0), cfg, oc)
+        cpu["step"] = torch.tensor(TRAIN_AT_STEP, dtype=torch.int32)  # lr > 0
+        gpu = train_state_from_numpy(train_state_to_numpy(cpu), cfg,
+                                     device=dev)
+        toks = torch.randint(0, cfg.vocab, (4, 33), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(1))
+        batch = {"tokens": toks}
+        kw, _ = _frontend(torch, cfg, 4, "cpu", 2)
+        batch.update(kw)
+        gbatch = {k: v.to(dev) for k, v in batch.items()}
+        _, cpu_grads = _grads_of(torch, cpu["params"], cfg, batch)
+        _, gpu_grads = _grads_of(torch, gpu["params"], cfg, gbatch)
+        step = make_train_step(cfg, oc)
+        want = step(cpu, batch)
+        got_state, got_metrics = step(gpu, gbatch)
+        worst_g, worst_p, left = _check_step(
+            torch, arch, (got_state, got_metrics, gpu_grads), want,
+            cpu_grads)
+        print(f"{arch} reduced, f32, one train step, card vs CPU port: loss "
+              f"{float(got_metrics['loss']):.6f} / "
+              f"{float(want[1]['loss']):.6f}, gradients within "
+              f"{worst_g:.3e} x scale, parameters and moments within "
+              f"{worst_p:.3e} x max(|cpu|, 1) where compared ({left:.3%} "
+              "of a leaf left out at most)", flush=True)
+
+
+def train_compressed_phase(torch, dev):
+    """Phase 11 (d): the compressed step, two pods on the one card, against
+    ``make_train_step`` on the same batch: the pods' int8 mean of the
+    gradients within each leaf's quantization step (amax / 127) plus the
+    gradient tolerance of the full batch's gradients."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_pod_data_mesh
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.steps import (init_error_fb, init_train_state,
+                                         make_compressed_train_step,
+                                         make_train_step,
+                                         quantized_psum_mean)
+
+    arch = "codeqwen1.5-7b"  # dense: the halves' mean loss is the batch's
+    cfg = get_config(arch).reduced()
+    oc = OptConfig(warmup_steps=2, total_steps=10)
+    state = init_train_state(torch.Generator(dev).manual_seed(0), cfg, oc)
+    state["step"] = torch.tensor(TRAIN_AT_STEP, dtype=torch.int32, device=dev)
+    toks = torch.randint(0, cfg.vocab, (4, 33), dtype=torch.int32,
+                         device=dev, generator=torch.Generator(dev).manual_seed(1))
+    _, full = _grads_of(torch, state["params"], cfg, {"tokens": toks})
+    pods = [_grads_of(torch, state["params"], cfg, {"tokens": toks[i:i + 2]})[1]
+            for i in (0, 2)]
+    mean, _ = quantized_psum_mean(pods)
+    worst = 0.0
+    for k, g in full.items():
+        amax = max(float(p[k].abs().max()) for p in pods)
+        bound = amax / 127 + TRAIN_GRAD_REL * max(float(g.abs().max()), 1e-6)
+        err = float((mean[k] - g).abs().max())
+        if err > bound:
+            raise AssertionError(f"compressed {k}: {err:.3e} > {bound:.3e}")
+        worst = max(worst, err / bound)
+    mesh = make_pod_data_mesh(2, 1, device=dev)
+    state_c = dict(state, error_fb=init_error_fb(state["params"]))
+    new_c, m_c = make_compressed_train_step(cfg, oc, mesh)(
+        state_c, {"tokens": toks})
+    new_c, m_c2 = make_compressed_train_step(cfg, oc, mesh)(
+        new_c, {"tokens": toks})
+    _, m_f = make_train_step(cfg, oc)(state, {"tokens": toks})
+    rel = abs(float(m_c["loss"]) - float(m_f["loss"])) / float(m_f["loss"])
+    if rel > TRAIN_LOSS_REL or len(new_c["error_fb"]) != 2:
+        raise AssertionError(f"compressed step: loss {rel:.3e} relative to "
+                             f"the full step's, {len(new_c['error_fb'])} "
+                             "error-feedback buffers")
+    print(f"compressed step, 2 pods on {mesh.devices.flat[0]} ({arch} "
+          f"reduced): int8 mean of the gradients within {worst:.3f} of its "
+          f"bound at worst; loss {float(m_c['loss']):.6f} against the full "
+          f"step's {float(m_f['loss']):.6f}, grad norm "
+          f"{float(m_c['grad_norm']):.4f} / {float(m_f['grad_norm']):.4f}, "
+          f"second step (error feedback) loss {float(m_c2['loss']):.6f}",
+          flush=True)
+
+
+def train_monitor_phase(torch):
+    """Phase 11 (e): ``examples/torch_anomaly_monitor.py`` on the card: the
+    injected straggler (host 7, steps 200-220) and hang (host 3, step 350)
+    flagged, as the reference example flags them."""
+    import contextlib
+    import importlib.util
+    import io
+    import re
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_anomaly_monitor", ROOT / "examples" / "torch_anomaly_monitor.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        mod.main(["--device", "cuda"])
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    print("\n".join("monitor | " + ln for ln in text.splitlines()), flush=True)
+    events = re.findall(r"host(\d+) step\s+(\d+): (\w+)", text)
+    straggler = any(h == "07" and k == "straggler" and 200 <= int(s) < 220
+                    for h, s, k in events)
+    hang = ("03", "350", "hang") in events
+    if not (straggler and hang and "both detected" in text):
+        raise AssertionError(f"anomaly monitor: events {events}")
+    print(f"anomaly monitor on the card: straggler host07 and hang host03 "
+          f"flagged ({wall:.1f} s)", flush=True)
+
+
+def train_phase(torch, dev, cli: TrainCLI):
+    """Phase 11, (a)-(e).  Returns the kernels' launches in the train steps
+    of (b)-(d) and in (e)."""
+    phase("train (a): the train CLI, failed and resumed")
+    train_cli_phase(cli)
+    _reset_launches()
+    phase("train (b): xlstm-125m in bf16 at full size")
+    train_bf16_phase(torch, dev)
+    phase("train (c): reduced configs, card against the CPU port")
+    train_against_cpu_phase(torch, dev)
+    phase("train (d): the compressed step, two pods")
+    train_compressed_phase(torch, dev)
+    step_launches = _launches()
+    _reset_launches()
+    phase("train (e): the anomaly monitor example")
+    train_monitor_phase(torch)
+    monitor_launches = _launches()
+    print(f"phase 11 kernel launches: train steps {step_launches}, anomaly "
+          f"monitor {monitor_launches}", flush=True)
+    return step_launches, monitor_launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2272,6 +2691,8 @@ def main(argv=None) -> int:
     ap.add_argument("--fleet-depths", default=None,
                     help="comma-separated points per stream: only build "
                          "the kernels and time phase 9 at each depth")
+    ap.add_argument("--train-only", action="store_true",
+                    help="only build the kernels and run phase 11")
     args = ap.parse_args(argv)
     import torch
 
@@ -2295,6 +2716,15 @@ def main(argv=None) -> int:
     if args.fleet_depths:
         return _fleet_depths(torch, dev, smi, [
             int(d) for d in args.fleet_depths.split(",")])
+    if args.train_only:
+        _build_kernels()
+        cli = TrainCLI()
+        try:
+            train_phase(torch, dev, cli)
+        finally:
+            cli.stop()
+        print(smi)
+        return 0
 
     # the CPU port's side of phase 6 runs beside the card's phases
     ctx = multiprocessing.get_context("spawn")
@@ -2381,6 +2811,17 @@ def _card_phases(torch, dev, smi, cpu_results) -> int:
     cli_phase(torch, dev)
     phase("replay (a): the zoo against the CPU port")
     zoo_against_cpu(zoo, _recv(cpu_results, "phase 8 (a)"))
+    # phase 11 (a)'s train CLI runs beside phases 9 and 10 (host-bound
+    # all: their wall times are read with it running)
+    cli = TrainCLI()
+    try:
+        return _phases_9_to_11(torch, dev, smi, cpu_results, measured,
+                               launches, cli)
+    finally:
+        cli.stop()
+
+
+def _phases_9_to_11(torch, dev, smi, cpu_results, measured, launches, cli):
     phase("fleet (a)-(b): run_fleet on the paper's fleet")
     fleet_phase(torch, dev)
     phase("sharded (c): the stream CLI with --devices 4")
@@ -2400,6 +2841,7 @@ def _card_phases(torch, dev, smi, cpu_results) -> int:
               f"({peak / 2**30:.2f} GiB)", flush=True)
     phase("serve (d): reduced configs, card against the CPU port")
     reduced_phase(torch, dev)
+    train_launches, monitor_launches = train_phase(torch, dev, cli)
     # the half-step's and the ewma kernel's launches are their own entry
     # points' (phases 3 and 5): the service launches neither
     for name in ("kmeans_assign", "ewma"):
@@ -2419,6 +2861,8 @@ def _card_phases(torch, dev, smi, cpu_results) -> int:
              "replaces": "src/repro/kernels/ewma.py:104"}]
     rows = [{**row, "launches": launches[row["name"]],
              "launches_abba": abba[row["name"]],
+             "launches_train_step": train_launches[row["name"]],
+             "launches_train_monitor": monitor_launches[row["name"]],
              **measured[row["name"]], "library_ms": None} for row in rows]
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -14,6 +14,11 @@ axis, which the port's module unstacks into one ``ModuleList`` entry each.
 A ``bfloat16`` leaf is taken as the 16-bit words it is (any 2-byte dtype,
 ``uint16`` included), and ``params_to_numpy`` gives those words back as
 ``uint16``.
+
+Train states travel as the reference's state tree: ``params`` as above,
+``opt`` (AdamW's ``m``/``v``, Adafactor's ``f`` with ``vr``/``vc`` or
+``v`` under each parameter's path), ``step`` and, for the compressed step,
+``error_fb``; outside ``params`` a 2-byte leaf is bf16.
 """
 from __future__ import annotations
 
@@ -25,9 +30,11 @@ from repro_torch.core.compress import CompressorState
 from repro_torch.core.digitize import DigitizerState
 from repro_torch.core.normalize import EwmState
 from repro_torch.core.symed import ReceiverState
+from repro_torch.models.params import leaf_path, path_str, stack_named
 
 __all__ = ["receiver_state_from_numpy", "receiver_state_to_numpy",
-           "params_from_numpy", "params_to_numpy"]
+           "params_from_numpy", "params_to_numpy", "train_state_from_numpy",
+           "train_state_to_numpy"]
 
 _CLASSES = {cls._fields: cls
             for cls in (ReceiverState, DigitizerState, CompressorState,
@@ -65,19 +72,6 @@ def receiver_state_to_numpy(state):
     return type(state)(*leaves)
 
 
-_STACKED = ("blocks", "enc_blocks")
-
-
-def _leaf_path(name: str):
-    """A port parameter name -> (keys into the reference's tree, the
-    superblock index or None): ``blocks.3.0.wq`` -> (``blocks``, 0, ``wq``),
-    3."""
-    parts = name.split(".")
-    if parts[0] in _STACKED:
-        return [parts[0], int(parts[2])] + parts[3:], int(parts[1])
-    return [int(p) if p.isdigit() else p for p in parts], None
-
-
 def _tensor(arr, dtype: torch.dtype) -> torch.Tensor:
     arr = np.ascontiguousarray(arr)
     if dtype == torch.bfloat16:
@@ -98,7 +92,7 @@ def params_from_numpy(tree, cfg, device=None):
     model = init_params(None, cfg, device="meta").to_empty(device=device)
     with torch.no_grad():
         for name, param in model.named_parameters():
-            keys, block = _leaf_path(name)
+            keys, block = leaf_path(name)
             leaf = tree
             for key in keys:
                 leaf = leaf[key]
@@ -131,16 +125,20 @@ def _tuples(tree):
     return tree
 
 
+def _arr(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.view(torch.int16).numpy().view(np.uint16)
+            if t.dtype == torch.bfloat16 else t.numpy())
+
+
 def params_to_numpy(model):
     """The port's model -> the JAX package's parameter tree of numpy
     arrays (``blocks``/``enc_blocks`` stacked again; bf16 as ``uint16``)."""
     tree: dict = {}
     stacked: dict = {}
     for name, param in model.named_parameters():
-        t = param.detach().cpu()
-        arr = (t.view(torch.int16).numpy().view(np.uint16)
-               if t.dtype == torch.bfloat16 else t.numpy())
-        keys, block = _leaf_path(name)
+        arr = _arr(param)
+        keys, block = leaf_path(name)
         if block is None:
             _set(tree, keys, arr)
         else:
@@ -148,3 +146,77 @@ def params_to_numpy(model):
     for keys, arrs in stacked.items():
         _set(tree, list(keys), np.stack(arrs))
     return _tuples(tree)
+
+
+def _np_leaf(tree, keys):
+    for key in keys:
+        tree = tree[key]
+    return tree
+
+
+def _half_or_f(arr, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    dtype = torch.bfloat16 if arr.dtype.itemsize == 2 else None
+    t = (_tensor(arr, dtype) if dtype is not None
+         else torch.from_numpy(np.ascontiguousarray(arr).copy()))
+    return t.to(device)
+
+
+def _keys(name: str):
+    return [int(k) if k.isdigit() else k for k in name.split("/")]
+
+
+def train_state_from_numpy(tree, cfg, device=None):
+    """The reference's train state of numpy arrays -> the port's
+    (``train.steps``' layout) on ``device`` (``cuda`` unless told
+    otherwise); the parameters trainable."""
+    device = resolve_device(device)
+    params = params_from_numpy(tree["params"], cfg, device).requires_grad_(
+        True)
+    names = list(stack_named(
+        (n, p) for n, p in params.named_parameters()))
+
+    def ref_dict(sub):
+        return {n: _half_or_f(_np_leaf(sub, _keys(n)), device) for n in names}
+
+    opt = tree["opt"]
+    if "f" in opt:
+        new_opt = {"f": {}}
+        for n in names:
+            node = _np_leaf(opt["f"], _keys(n))
+            new_opt["f"][n] = {k: _half_or_f(v, device)
+                               for k, v in node.items()}
+    else:
+        new_opt = {"m": ref_dict(opt["m"]), "v": ref_dict(opt["v"])}
+    state = {"params": params, "opt": new_opt,
+             "step": torch.as_tensor(np.array(tree["step"]),
+                                     dtype=torch.int32).to(device)}
+    if "error_fb" in tree:
+        state["error_fb"] = ref_dict(tree["error_fb"])
+    return state
+
+
+def _unflatten(named) -> dict:
+    tree: dict = {}
+    for name, t in named.items():
+        if isinstance(t, dict):
+            for k, v in t.items():
+                _set(tree, _keys(name) + [k], _arr(v))
+        else:
+            _set(tree, _keys(name), _arr(t))
+    return _tuples(tree)
+
+
+def train_state_to_numpy(state):
+    """The port's train state -> the reference's tree of numpy arrays (bf16
+    as ``uint16``).  A per-pod ``error_fb`` gives pod 0's buffers, the
+    copy the reference's host reads of its replicated-spec output."""
+    opt = state["opt"]
+    out = {"params": params_to_numpy(state["params"]),
+           "opt": {k: _unflatten(v) for k, v in opt.items()},
+           "step": np.asarray(int(state["step"]), np.int32)}
+    if "error_fb" in state:
+        efb = state["error_fb"]
+        out["error_fb"] = _unflatten(efb[0] if isinstance(efb, (list, tuple))
+                                     else efb)
+    return out

@@ -1,9 +1,12 @@
-"""Data substrate: synthetic UCR-like streams.
+"""Data substrate: synthetic UCR-like streams, SymED tokenizer, pipeline.
 
-Port of ``repro.data``'s re-exports.  The SymED tokenizer and the training
-pipeline (``SymbolTokenizer``, ``SymbolPipeline``, ``TokenBatcher``) come
-with the training slice.
+Port of ``repro.data``'s re-exports.
 """
+from repro_torch.data.pipeline import SymbolPipeline, TokenBatcher
 from repro_torch.data.synthetic import FAMILIES, make_dataset, make_fleet
+from repro_torch.data.tokenizer import SymbolTokenizer
 
-__all__ = ["FAMILIES", "make_dataset", "make_fleet"]
+__all__ = [
+    "FAMILIES", "make_dataset", "make_fleet", "SymbolTokenizer",
+    "SymbolPipeline", "TokenBatcher",
+]

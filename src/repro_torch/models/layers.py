@@ -2,16 +2,21 @@
 
 Port of ``repro.models.layers``.  Parameters live in ``ParamTree``s: an
 ``nn.Module`` per node of the reference's dict tree, holding its leaves as
-``nn.Parameter``s under the reference's names (no gradients: the port
-serves).  Layers are plain functions of such a node and tensors.
+``nn.Parameter``s under the reference's names.  They take no gradients
+unless made trainable (``requires_grad_()``; the train state's are), so a
+served model builds no graph.  Layers are plain functions of such a node
+and tensors.
 
 Products follow the reference's precision contract.  ``dense`` multiplies
 in the model dtype with f32 accumulation and rounds once back to it (a
 bf16 ``matmul`` does so on the CPU and, under cuBLAS's default settings, on
 the card: PERF.md's readings found no output that the reduced-precision
-reductions setting moves); ``matmul_f32`` is the reference's
-``preferred_element_type=float32`` product, f32 out; norms and softmax run
-in f32.
+reductions setting moves); its backward is the reference's
+``_matmul_bf16_grads``: both gradients from f32-accumulated products,
+rounded once to the input's and the weight's dtype.  ``matmul_f32`` is the
+reference's ``preferred_element_type=float32`` product, f32 out, whose
+gradients are f32 products rounded to the operands' dtypes; norms and
+softmax run in f32.
 """
 from __future__ import annotations
 
@@ -28,8 +33,9 @@ __all__ = [
 
 
 class ParamTree(nn.Module):
-    """One node of the parameter tree: tensors become frozen
-    ``nn.Parameter``s, modules become children, each under its key."""
+    """One node of the parameter tree: tensors become ``nn.Parameter``s
+    (frozen until ``requires_grad_()``), modules become children, each
+    under its key."""
 
     def __init__(self, **children):
         super().__init__()
@@ -68,6 +74,27 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 
+class _MatmulF32(torch.autograd.Function):
+    """The card's ``a @ b`` with an f32 result (``torch.mm``'s
+    ``out_dtype``), with the VJP of the reference's ``dot_general(...,
+    preferred_element_type=float32)``: each gradient an f32 product of the
+    f32 cotangent and the other operand, rounded to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return out.reshape(a.shape[:-1] + (b.shape[-1],))
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        ga = (g2 @ b.float().T).to(a.dtype).reshape(a.shape)
+        gb = (a.reshape(-1, a.shape[-1]).float().T @ g2).to(b.dtype)
+        return ga, gb
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with an f32 result from operands of one dtype: every
     product exact, the sums in f32 (``preferred_element_type=float32``).
@@ -75,15 +102,42 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype == torch.float32:
         return a @ b
     if a.is_cuda:
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
-        return out.reshape(a.shape[:-1] + (b.shape[-1],))
+        return _MatmulF32.apply(a, b)
     return a.float() @ b.float()
+
+
+class _DenseFn(torch.autograd.Function):
+    """Port of the reference's ``_matmul_bf16_grads``: ``x @ w`` in
+    ``x``'s dtype with f32 accumulation; backward ``dx = g wᵀ`` rounded to
+    ``x.dtype`` and ``dw = xᵀ g`` (summed over every leading axis) rounded
+    to ``w.dtype``, each from one f32-accumulated product."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return x @ w.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = g @ w.to(g.dtype).T
+        x2 = x.reshape(-1, x.shape[-1])
+        g2 = g.reshape(-1, g.shape[-1])
+        if w.dtype == x.dtype:
+            dw = x2.T @ g2
+        else:  # the f32 sums rounded once to w's dtype, not to x's first
+            dw = (x2.float().T @ g2.float()).to(w.dtype)
+        return dx, dw
 
 
 def dense(x: torch.Tensor, w: torch.Tensor,
           b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ w with f32 accumulation, output cast back to x.dtype."""
-    y = x @ w.to(x.dtype)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        y = _DenseFn.apply(x, w)
+    else:  # serving: the same product, no graph
+        y = x @ w.to(x.dtype)
     if b is not None:
         y = y + b.to(y.dtype)
     return y

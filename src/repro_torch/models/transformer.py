@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -162,20 +163,33 @@ def _layer_fwd(p, cfg, spec, x, aux, *, enc_mem, mode_override, collect,
     return x, aux, cache
 
 
-def _stack_fwd(blocks, cfg, pattern, x, *, enc_mem, mode_override, collect):
+def _stack_fwd(blocks, cfg, pattern, x, *, enc_mem, mode_override, collect,
+               remat: bool = False):
     """Run the superblocks in order; returns (x, aux, caches), ``caches`` a
     list over superblocks of tuples over the pattern (None unless
-    ``collect``)."""
+    ``collect``).  ``remat`` (taken only while autograd records) keeps
+    each superblock's boundary alone and recomputes its inside in the
+    backward, the reference's block-level checkpoint."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = remat and torch.is_grad_enabled()
     caches = []
-    for block in blocks:
+
+    def block_body(block, x, aux):
         block_caches = []
         for p, spec in zip(block, pattern):
             x, aux, c = _layer_fwd(p, cfg, spec, x, aux, enc_mem=enc_mem,
                                    mode_override=mode_override,
                                    collect=collect)
             block_caches.append(c)
-        caches.append(tuple(block_caches))
+        return x, aux, tuple(block_caches)
+
+    for block in blocks:
+        if remat:
+            x, aux, block_caches = checkpoint(block_body, block, x, aux,
+                                              use_reentrant=False)
+        else:
+            x, aux, block_caches = block_body(block, x, aux)
+        caches.append(block_caches)
     return x, aux, (caches if collect else None)
 
 
@@ -190,33 +204,36 @@ def _embed_tokens(params, cfg, tokens, pos0=0):
     return x
 
 
-def _encode(params, cfg, enc_frames):
+def _encode(params, cfg, enc_frames, remat: bool = False):
     """Whisper-style encoder over (stubbed) frame embeddings."""
     x = enc_frames.to(model_dtype(cfg))
     x, _, _ = _stack_fwd(params.enc_blocks, cfg, _enc_pattern(cfg), x,
-                         enc_mem=None, mode_override="bidir", collect=False)
+                         enc_mem=None, mode_override="bidir", collect=False,
+                         remat=remat)
     return rms_norm(x, params.enc_ln_f, cfg.norm_eps)
 
 
 def forward(params, cfg, tokens, *, prefix_embeds=None, enc_frames=None,
-            collect: bool = False):
+            collect: bool = False, remat: bool = True):
     """Full-sequence forward.
 
     Returns (activations (B, S_total, d), aux_loss, caches, enc_mem).
-    ``S_total`` includes the VLM prefix if present.
+    ``S_total`` includes the VLM prefix if present.  ``remat`` changes
+    memory, not numbers (see ``_stack_fwd``).
     """
     x = _embed_tokens(params, cfg, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
 
-    enc_mem = _encode(params, cfg, enc_frames) if enc_frames is not None else None
+    enc_mem = (_encode(params, cfg, enc_frames, remat)
+               if enc_frames is not None else None)
 
     caches = None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.n_blocks:
         x, aux, caches = _stack_fwd(
             params.blocks, cfg, cfg.block_pattern, x, enc_mem=enc_mem,
-            mode_override=None, collect=collect)
+            mode_override=None, collect=collect, remat=remat)
     caches_tail = []
     for p, spec in zip(params.get("tail", ()), cfg.tail_pattern):
         x, aux, c = _layer_fwd(p, cfg, spec, x, aux, enc_mem=enc_mem,
@@ -254,14 +271,15 @@ def chunked_xent(params, cfg, x, labels, *, chunk: int = 512):
     return tot / torch.clamp_min(cnt, 1.0)
 
 
-def loss_fn(params, cfg, batch):
+def loss_fn(params, cfg, batch, *, remat: bool = True):
     """batch: tokens (B,S) int, plus optional prefix_embeds / enc_frames.
-    Returns (loss + aux, {"xent": loss, "aux": aux})."""
+    Returns (loss + aux, {"xent": loss, "aux": aux}).  ``remat``: the
+    superblocks' insides are recomputed in the backward (memory only)."""
     tokens = batch["tokens"]
     x, aux, _, _ = forward(
         params, cfg, tokens,
         prefix_embeds=batch.get("prefix_embeds"),
-        enc_frames=batch.get("enc_frames"),
+        enc_frames=batch.get("enc_frames"), remat=remat,
     )
     prefix = (0 if batch.get("prefix_embeds") is None
               else batch["prefix_embeds"].shape[1])

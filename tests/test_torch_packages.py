@@ -1,6 +1,6 @@
 """The port's package re-exports against the reference's (ROADMAP Queue C
-16): ``repro_torch.data`` re-exports what ``repro.data`` does of the
-synthetic data (the tokenizer and pipeline come with training), and
+16): ``repro_torch.data`` re-exports what ``repro.data`` does (the
+synthetic data; since the training slice the tokenizer and pipeline), and
 ``repro_torch.kernels`` imports ``ops`` and ``ref`` as ``repro.kernels``
 does, without building a kernel.
 """
@@ -37,6 +37,14 @@ def test_data_reexports(name):
         for a, b in zip(ns["port"]("sensor", 2, 100, seed=5),
                         ns["ref"]("sensor", 2, 100, seed=5)):
             np.testing.assert_array_equal(a, np.asarray(b))
+
+
+def test_data_reexports_every_name():
+    """Every name of ``repro.data.__all__``, the training slice's
+    ``SymbolTokenizer``, ``SymbolPipeline`` and ``TokenBatcher`` too."""
+    assert sorted(repro_torch.data.__all__) == sorted(repro.data.__all__)
+    for name in ("SymbolTokenizer", "SymbolPipeline", "TokenBatcher"):
+        assert getattr(repro_torch.data, name).__name__ == name
 
 
 @pytest.mark.parametrize("name", ["ops", "ref"])
