@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of SymED on one GPU and check it.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``.  Eleven
+Run from the root of a checkout: ``python3 chip_smoke.py``.  Twelve
 phases, each raising on failure:
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
@@ -44,8 +44,8 @@ phases, each raising on failure:
    the CPU port (which the CPU tests hold to the JAX reference) against
    the cuda run, a small config on cuda against the CPU port, and
    ``symed_encode(reconstruct=True)`` on 4 paper-config streams, cuda
-   against the CPU port (run last: the CPU port's side runs in a worker
-   process beside the card's phases);
+   against the CPU port (run after phase 8: the CPU port's side runs in a
+   worker process beside the card's phases);
 7. compressed-in, the paper's own deployment: (a) the same 256 sessions as
    senders that compress on the card (one batched ``symed_encode_chunk``
    per 64-point window, ``pieces_on_wire`` per session) and a
@@ -101,7 +101,8 @@ phases, each raising on failure:
    card (its k-search through the Lloyd kernel) on the five families of
    ``make_dataset`` at the Fig. 5 settings (4 series x 1000 points, seed
    11, ``n_max=256``, ``len_max=256``, ``k_max=64``) at tol 0.5, 0.1 and
-   1.9, each tol's reconstructions scored in one DTW kernel launch, against
+   1.9, each tol's reconstructions scored in one DTW kernel launch (the
+   card's side in a process of its own, beside phase 9), against
    the CPU port (run in the worker): lengths, incs, n_pieces, mean and std
    bitwise, at least 99% of labels equal, DTW within 1e-4 relative where
    the labels agree; its launches, host syncs and wall time printed; (b)
@@ -132,7 +133,7 @@ phases, each raising on failure:
    checkpoint: every logged loss finite, the last three's mean below the
    first three's by 0.1; its ms per step, tokens/s, peak memory and the
    seconds each batch waited on the pipeline printed (the two runs go in
-   a background thread beside phases 9 and 10, all host-bound); (b) xlstm-125m
+   a background thread beside phases 8-10, all host-bound); (b) xlstm-125m
    at its published config in bf16, 3 AdamW steps in process: finite
    loss and grad norm, every leaf moved, 155,634,512 parameters, ms per
    step and peak memory; then symlm-100m the same way (the train step
@@ -148,7 +149,26 @@ phases, each raising on failure:
    error-feedback buffer per pod; (e) ``examples/torch_anomaly_monitor.py``
    on the card flags the injected straggler (host 7, steps 200-220) and
    the hang (host 3, step 350).  The kernels' launches are counted in the
-   train steps of (b)-(d) (none) and in (e) (the Lloyd kernel).
+   train steps of (b)-(d) (none) and in (e) (the Lloyd kernel);
+12. the sharding rules and the dry run (no kernel on this path): (a)
+   ``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CELL`` (the
+   reference's own cell: xlstm-125m, decode_32k, the 2 x 16 x 16 mesh on
+   ``meta``) in a child process, started before phase 10 (a) and read
+   here, prints ``OK`` and writes its JSON; (b) the
+   same cell through ``dryrun.build_cell`` on a one-shard mesh, traced on
+   ``meta`` and run on the card (``decode_step`` at batch 128 against a
+   32768-token cell, parameters from seed 0): the bytes of the parameters,
+   state and token on the card equal the dry run's argument bytes, the FLOPs
+   counted on the card equal the ``meta`` count, and ``DRYRUN_STEPS`` timed
+   steps (each step's outputs dropped before the next; the counted step
+   must leave nothing alive) are printed beside the card's roofline terms,
+   the peak memory beside the predicted peak;
+   (c) a reduced train state saved from the card,
+   resumed by ``launch.elastic.resume_on_mesh`` onto a (2, 2) mesh of 4
+   shard devices: every leaf in 4 pieces of its spec's shape, gathered
+   bitwise; (d) the reduced serve path (prefill, then greedy decode steps)
+   of a dense, an MoE and a recurrent config under ``use_mesh_rules`` on the
+   multi-pod mesh, bitwise equal to the same path without it.
 
 The last two lines are a JSON summary of every kernel (``launches`` from
 phase 6, ``launches_abba`` from phase 10 (a), ``launches_train_step``
@@ -271,7 +291,7 @@ LLOYD_EXTRA = [(2, 30000, 2, 8)]  # pieces too many for shared memory
 # 22-26 s on the pipeline (about 1.35 slabs of 32 x 1024 points), and
 # each run spends about 100 s more in start-up, its first batch (two
 # slabs) and the batcher's last slab (PERF.md, training): the two runs
-# take about 330 s, so they run beside phases 9 and 10
+# take 330-480 s, so they run beside phases 8-10
 TRAIN_STEPS, TRAIN_FAIL = 6, 3
 TRAIN_BF16 = ("xlstm-125m", 8, 256, 3)  # (b): arch, batch, seq, steps
 # (c): a dense, an MoE and two recurrent reduced configs, card against CPU
@@ -279,6 +299,17 @@ TRAIN_REDUCED = ("codeqwen1.5-7b", "olmoe-1b-7b", "jamba-1.5-large-398b",
                  "xlstm-125m")
 TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_OPT_REL = 1e-5, 1e-4, 1e-6
 TRAIN_AT_STEP = 5  # (c)-(d) step from here: past warmup's lr of 0 at step 0
+# phase 12: the dry run's cell (the reference's own, tests/test_system.py)
+# through the CLI on meta, then on a one-shard mesh run on the card for
+# DRYRUN_STEPS timed decode steps after one untimed; elastic resume of a
+# reduced train state onto ELASTIC_SHARDS shard devices; the reduced serve
+# path under the mesh rules (a dense, an MoE and a recurrent config,
+# RULES_PROMPT tokens then RULES_GEN greedy steps)
+DRYRUN_CELL = ("xlstm-125m", "decode_32k", "multipod")
+DRYRUN_STEPS = 5
+ELASTIC_ARCH, ELASTIC_SHARDS, ELASTIC_MODEL = "olmoe-1b-7b", 4, 2
+RULES_ARCHS = ("codeqwen1.5-7b", "olmoe-1b-7b", "xlstm-125m")
+RULES_PROMPT, RULES_GEN = (4, 16), 4
 
 
 _T0 = time.perf_counter()
@@ -1975,17 +2006,64 @@ def _abba_reference():
     return out
 
 
-def abba_phase(torch, dev, cpu):
-    """Phase 10 (a): ABBA on the card against the CPU port.  Returns the
-    kernels' launches, counted from 0 just before it."""
+def _abba_card_worker(conn, dev) -> None:
+    """Worker process: phase 10 (a)'s streams on ``dev``, the kernels'
+    launches counted from 0 just before them.  Host-bound, so it runs in a
+    process of its own beside phase 9; sends ``("ok", {"runs", "seconds",
+    "counts"})`` or the failure."""
+    try:
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _reset_launches()
+        t0 = time.perf_counter()
+        runs = _abba_runs(torch, dev)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        conn.send(("ok", {"runs": runs, "seconds": time.perf_counter() - t0,
+                          "counts": _launches()}))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+class AbbaCard:
+    """Phase 10 (a)'s side on the card in a worker process: the smoke
+    starts it after phase 8, when the CPU port's worker is about done, and
+    reads it in phase 10, so it runs beside phase 6's checks against the
+    CPU port and phase 9.  ``stop`` ends it if it is still going."""
+
+    def __init__(self, dev):
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, send = ctx.Pipe(duplex=False)
+        self._proc = ctx.Process(target=_abba_card_worker, args=(send, dev),
+                                 daemon=True)
+        self._proc.start()
+        send.close()
+
+    def result(self):
+        t0 = time.perf_counter()
+        status, got = self._conn.recv()
+        if status != "ok":
+            raise RuntimeError(f"phase 10 (a)'s card worker failed:\n{got}")
+        got["waited"] = time.perf_counter() - t0
+        return got
+
+    def stop(self):
+        if self._proc.is_alive():
+            self._proc.terminate()
+        self._proc.join(timeout=60)
+
+
+def abba_phase(card, cpu):
+    """Phase 10 (a): ABBA on the card (``AbbaCard``'s result) against the
+    CPU port.  Returns the kernels' launches, counted from 0 just before
+    the card's side."""
     import numpy as np
 
-    _reset_launches()
-    t0 = time.perf_counter()
-    runs = _abba_runs(torch, dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = _launches()
+    runs, wall, counts = card["runs"], card["seconds"], card["counts"]
     for tol in ABBA_TOLS:
         g, c = runs[tol], cpu["runs"][tol]
         agree = total = same_streams = 0
@@ -2016,7 +2094,8 @@ def abba_phase(torch, dev, cpu):
     if counts["kmeans_lloyd"] <= 0 or counts["dtw"] != len(ABBA_TOLS):
         raise AssertionError(f"abba on the card: launches {counts}")
     print(f"abba on the card: {wall:.2f} s for {3 * len(runs[0.5]['fields'])}"
-          f" encodes, Lloyd launches {counts['kmeans_lloyd']}, DTW launches "
+          f" encodes (a worker process; waited {card['waited']:.1f} s for "
+          f"it), Lloyd launches {counts['kmeans_lloyd']}, DTW launches "
           f"{counts['dtw']}, host syncs {counts['host_syncs']}", flush=True)
     return counts
 
@@ -2311,9 +2390,9 @@ def reduced_phase(torch, dev):
 
 class TrainCLI:
     """Phase 11 (a)'s two runs of the train CLI, one after the other in a
-    background thread: the smoke starts them before phase 9 and reads
-    them in phase 11, so they overlap phases 9 and 10 (all host-bound;
-    the card has room for both).  ``stop`` kills a run still going."""
+    background thread: the smoke starts them before phase 8 and reads them
+    in phase 11, so they overlap phases 8-10 (all host-bound; the card has
+    room for all).  ``stop`` kills a run still going."""
 
     def __init__(self):
         import tempfile
@@ -2684,6 +2763,256 @@ def train_phase(torch, dev, cli: TrainCLI):
     return step_launches, monitor_launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the sharding rules and the dry run
+# ---------------------------------------------------------------------------
+
+class DryrunCLI:
+    """Phase 12 (a)'s child, the dry-run CLI on ``DRYRUN_CELL``: the smoke
+    starts it before phase 10 (a), once the CPU port's worker is done, and
+    reads it in phase 12, so it runs beside phases 10 and 11.  ``stop``
+    kills it if it is still going."""
+
+    def __init__(self):
+        import tempfile
+        import threading
+
+        arch, shape, mesh = DRYRUN_CELL
+        self.out_dir = tempfile.mkdtemp(prefix="smoke_dryrun_")
+        env = {**os.environ,
+               "PYTHONPATH": os.pathsep.join(
+                   [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                 if p])}
+        self._t0 = time.perf_counter()
+        self._proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out", self.out_dir],
+            cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        self.out = self.err = self.error = None
+        self.seconds = 0.0
+        self._thread = threading.Thread(target=self._wait, daemon=True)
+        self._thread.start()
+
+    def _wait(self):
+        try:
+            self.out, self.err = self._proc.communicate(timeout=300)
+            self.seconds = time.perf_counter() - self._t0
+        except BaseException as e:  # read in result()
+            self.error = e
+
+    def result(self):
+        self._thread.join()
+        if self.error is not None:
+            raise self.error
+        return self._proc.returncode, self.out, self.err
+
+    def stop(self):
+        import shutil
+
+        if self._proc.poll() is None:
+            self._proc.kill()
+        self._thread.join(timeout=60)
+        shutil.rmtree(self.out_dir, ignore_errors=True)
+
+
+def dryrun_cli_phase(dry: DryrunCLI):
+    """Phase 12 (a): the CLI printed ``OK`` and wrote the cell's JSON, with
+    ``null`` where the port has no partitioner."""
+    t0 = time.perf_counter()
+    rc, out, err = dry.result()
+    waited = time.perf_counter() - t0
+    arch, shape, mesh = DRYRUN_CELL
+    tag = f"{arch}_{shape}_{mesh}"
+    print("\n".join("dryrun | " + ln for ln in out.splitlines()), flush=True)
+    if rc != 0 or not out.startswith(f"OK   {tag}"):
+        raise AssertionError(f"dry-run CLI: rc {rc}\n{out}\n{err[-2000:]}")
+    rec = json.loads((Path(dry.out_dir) / f"{tag}.json").read_text())
+    if rec["collectives"] is not None or rec["n_chips"] != 512:
+        raise AssertionError(f"dry-run JSON: {rec}")
+    print(f"dry-run CLI on {tag}: OK in {dry.seconds:.1f} s (child process; "
+          f"phase 12 waited {waited:.1f} s for it); argument bytes per "
+          f"device {rec['memory']['argument_bytes_per_dev']}, peak "
+          f"{rec['memory']['peak_bytes_per_dev']}, FLOPs per device "
+          f"{rec['cost']['flops_per_dev']} (analytic), "
+          f"{rec['cost']['torch_flops_per_dev_raw']} (counted)", flush=True)
+
+
+def dryrun_card_phase(torch, dev):
+    """Phase 12 (b): ``DRYRUN_CELL`` on a one-shard mesh, traced on ``meta``
+    and run on the card: bytes and FLOPs equal, step time beside the
+    roofline, peak memory beside the prediction."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+
+    arch, shape, _ = DRYRUN_CELL
+    cfg = get_config(arch)
+    want = dryrun.measure_cell(dryrun.build_cell(
+        cfg, shape, make_test_mesh((1, 1), device="meta")))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cell = dryrun.build_cell(cfg, shape, make_test_mesh((1, 1), device=dev),
+                             device=dev)
+    nbytes = sum(t.numel() * t.element_size() for t in cell.tensors())
+    held = torch.cuda.memory_allocated() - base
+    if nbytes != want["memory"]["argument_bytes_per_dev"]:
+        raise AssertionError(f"{arch} {shape}: {nbytes} bytes of arguments on "
+                             f"the card, the dry run's "
+                             f"{want['memory']['argument_bytes_per_dev']}")
+    got = dryrun.measure_cell(cell)  # one decode step under the counters
+    kept = torch.cuda.memory_allocated()
+    counted = got["cost"]["torch_flops_per_dev_raw"]
+    if counted != want["cost"]["torch_flops_per_dev_raw"]:
+        raise AssertionError(f"{arch} {shape}: {counted} FLOPs counted on the "
+                             f"card, {want['cost']['torch_flops_per_dev_raw']}"
+                             " on meta")
+    times, finite = [], True
+    for _ in range(DRYRUN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cell.fn(*cell.args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        finite = finite and bool(torch.isfinite(out[0]).all())
+        del out  # so that the peak below is one step's
+    if not finite:
+        raise AssertionError(f"{arch} {shape}: non-finite logits")
+    if kept != torch.cuda.memory_allocated():
+        raise AssertionError(f"{arch} {shape}: the counted step left "
+                             f"{kept - torch.cuda.memory_allocated()} bytes "
+                             "alive")
+    peak = torch.cuda.max_memory_allocated() - base
+    roof = want["roofline"]
+    print(f"{arch} {shape} on one card (batch {cell.local_batch}, one shard): "
+          f"arguments {nbytes} bytes = the dry run's (allocator "
+          f"{held}), FLOPs counted {counted:.6e} = meta's, analytic "
+          f"{want['cost']['flops_per_dev']:.6e}; decode step "
+          f"{1e3 * statistics.median(times):.3f} ms median of "
+          f"{DRYRUN_STEPS} ({', '.join(f'{1e3 * t:.3f}' for t in times)}) "
+          f"against compute_s {1e3 * roof['compute_s']:.6f} ms, memory_s "
+          f"{1e3 * roof['memory_s']:.6f} ms ({roof['dominant']}); "
+          f"max_memory_allocated {peak} bytes against the predicted peak "
+          f"{want['memory']['peak_bytes_per_dev']} (temp "
+          f"{want['memory']['temp_bytes_per_dev']}, meta trace "
+          f"{want['compile_seconds']} s, card {got['compile_seconds']} s)",
+          flush=True)
+    del cell
+
+
+def elastic_phase(torch, dev):
+    """Phase 12 (c): a reduced train state saved from the card, resumed onto
+    ``ELASTIC_SHARDS`` shard devices as a ``(data, model)`` mesh, each leaf
+    gathered bitwise."""
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt import save_checkpoint
+    from repro_torch.ckpt.checkpoint import named_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.launch.elastic import elastic_mesh, resume_on_mesh
+    from repro_torch.launch.mesh import describe_devices, shard_devices
+    from repro_torch.launch.specs import abstract_train_state
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.steps import init_train_state
+
+    cfg, oc = get_config(ELASTIC_ARCH).reduced(), OptConfig()
+    state = init_train_state(torch.Generator(dev).manual_seed(0), cfg, oc,
+                             device=dev)
+    tmp = tempfile.mkdtemp(prefix="smoke_elastic_")
+    try:
+        save_checkpoint(tmp, 1, state)
+        mesh = elastic_mesh(ELASTIC_MODEL,
+                            devices=shard_devices(ELASTIC_SHARDS, dev))
+        restored, _ = resume_on_mesh(tmp, abstract_train_state(cfg, oc), mesh)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = dict(named_leaves(restored))
+    n = 0
+    for name, leaf in named_leaves(state):
+        s = got[name]
+        local = s.sharding.shard_shape(tuple(leaf.shape))
+        if (s.sharding.num_devices != ELASTIC_SHARDS
+                or any(tuple(p.shape) != local
+                       or p.device.type != torch.device(dev).type
+                       for p in s.pieces)
+                or not torch.equal(s.gather(dev), leaf)):
+            raise AssertionError(f"elastic resume: {name} {s}")
+        n += 1
+    default = elastic_mesh(1, device=dev)
+    print(f"elastic resume of {ELASTIC_ARCH} reduced onto a "
+          f"{tuple(mesh.devices.shape)} (data, model) mesh "
+          f"({describe_devices(mesh.devices.flat)}): {n} leaves in "
+          f"{ELASTIC_SHARDS} pieces each, gathered bitwise; elastic_mesh(1) "
+          f"over every card: {tuple(default.devices.shape)}", flush=True)
+
+
+def _serve_path(torch, cfg, params, prompt):
+    """The reduced serve path: prefill, then ``RULES_GEN`` greedy steps of
+    ``make_serve_step``; every logit, token and the final state."""
+    from repro_torch.launch.specs import decode_state_leaves
+    from repro_torch.models import prefill
+    from repro_torch.models.transformer import decode_step
+
+    with torch.no_grad():
+        logits, state = prefill(params, cfg, prompt,
+                                max_len=prompt.shape[1] + RULES_GEN)
+        outs = [logits]
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        for _ in range(RULES_GEN):
+            logits, state = decode_step(params, cfg, state, tok)
+            tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+            outs += [logits, tok]
+    return outs + list(decode_state_leaves(state).values())
+
+
+def mesh_rules_phase(torch, dev):
+    """Phase 12 (d): the reduced serve path under ``use_mesh_rules`` on the
+    multi-pod mesh, bitwise equal to the path without it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import init_params
+    from repro_torch.sharding import ctx, use_mesh_rules
+
+    mesh = make_production_mesh(multi_pod=True, device="meta")
+    for arch in RULES_ARCHS:
+        cfg = get_config(arch).reduced()
+        params = init_params(torch.Generator(dev).manual_seed(0), cfg,
+                             device=dev)
+        prompt = torch.randint(0, cfg.vocab, RULES_PROMPT, device=dev,
+                               dtype=torch.int32,
+                               generator=torch.Generator(dev).manual_seed(1))
+        plain = _serve_path(torch, cfg, params, prompt)
+        with use_mesh_rules(mesh), ctx.recording() as sites:
+            ruled = _serve_path(torch, cfg, params, prompt)
+        if len(plain) != len(ruled) or not all(
+                torch.equal(a, b) for a, b in zip(plain, ruled)):
+            raise AssertionError(f"{arch}: the serve path differs under the "
+                                 "mesh rules")
+        names = sorted({s[0] for s in sites}, key=str)
+        print(f"{arch} reduced on the card under use_mesh_rules(2 x 16 x 16): "
+              f"{len(plain)} tensors bitwise equal to the run without; "
+              f"{len(sites)} constraints resolved at {len(names)} distinct "
+              f"sites {names}", flush=True)
+
+
+def dryrun_phase(torch, dev, dry: DryrunCLI):
+    """Phase 12, (a)-(d); (a)'s child has run beside phases 10 and 11."""
+    t0 = time.perf_counter()
+    phase("dry run (b): the cell on a one-shard mesh on the card")
+    dryrun_card_phase(torch, dev)
+    phase("dry run (c): elastic resume onto 4 shard devices")
+    elastic_phase(torch, dev)
+    phase("dry run (d): the serve path under the mesh rules")
+    mesh_rules_phase(torch, dev)
+    phase("dry run (a): the dry-run CLI")
+    dryrun_cli_phase(dry)
+    print(f"phase 12 took {time.perf_counter() - t0:.1f} s here, beside "
+          f"{dry.seconds:.1f} s of (a)'s child", flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2798,50 +3127,70 @@ def _card_phases(torch, dev, smi, cpu_results) -> int:
     phase("compressed-in")
     compressed_in_phase(torch, dev, krn, launches["kmeans_lloyd"])
 
-    phase("end to end: cuda against the CPU port")
-    cross_device_phase(torch, dev, krn, cpu_results)
-
-    phase("replay (a): the scenario zoo")
-    zoo = zoo_phase(torch, dev)
-    phase("replay (b): flash_crowd at the paper's fleet")
-    scale_phase(torch, dev)
-    phase("replay (c): mixed_fleet over loopback TCP, scraped")
-    tcp_replay_phase(torch, dev, zoo["mixed_fleet"])
-    phase("replay (d): the stream CLI")
-    cli_phase(torch, dev)
-    phase("replay (a): the zoo against the CPU port")
-    zoo_against_cpu(zoo, _recv(cpu_results, "phase 8 (a)"))
-    # phase 11 (a)'s train CLI runs beside phases 9 and 10 (host-bound
-    # all: their wall times are read with it running)
+    # phase 11 (a)'s two train CLI runs (330-480 s, most of it waiting on
+    # their pipeline) start here and run beside phases 8 and 9; phase 10
+    # (a)'s card side starts after phase 8, when the CPU port's worker (its
+    # whole run up to about 630 s) is about done, and runs beside phase 6's
+    # checks against that worker and phase 9.  Each is a process of its
+    # own; all are host-bound, so the wall times of phases 8-10 are read
+    # with them running
     cli = TrainCLI()
+    abba = None
     try:
-        return _phases_9_to_11(torch, dev, smi, cpu_results, measured,
-                               launches, cli)
+        phase("replay (a): the scenario zoo")
+        zoo = zoo_phase(torch, dev)
+        phase("replay (b): flash_crowd at the paper's fleet")
+        scale_phase(torch, dev)
+        phase("replay (c): mixed_fleet over loopback TCP, scraped")
+        tcp_replay_phase(torch, dev, zoo["mixed_fleet"])
+        phase("replay (d): the stream CLI")
+        cli_phase(torch, dev)
+        abba = AbbaCard(dev)
+        phase("end to end: cuda against the CPU port")
+        cross_device_phase(torch, dev, krn, cpu_results)
+        return _phases_9_to_12(torch, dev, smi, cpu_results, measured,
+                               launches, cli, zoo, abba)
     finally:
         cli.stop()
+        if abba is not None:
+            abba.stop()
 
 
-def _phases_9_to_11(torch, dev, smi, cpu_results, measured, launches, cli):
+def _phases_9_to_12(torch, dev, smi, cpu_results, measured, launches, cli,
+                    zoo, abba_card):
     phase("fleet (a)-(b): run_fleet on the paper's fleet")
     fleet_phase(torch, dev)
     phase("sharded (c): the stream CLI with --devices 4")
     sharded_cli_phase(torch, dev)
     phase("sharded (d): a 4-block slot table against one block")
     sharded_table_phase(torch, dev)
-    phase("ABBA (a): the Fig. 5 streams on the card against the CPU port")
-    abba = abba_phase(torch, dev, _recv(cpu_results, "phase 10 (a)"))
-    phase("serve (b): the serve CLI at full width")
-    for arch in FULL_DEPTH:
-        serve_cli_phase(arch)
-    phase("serve (c): every arch at full width in bf16")
-    peaks = full_width_phase(torch, dev)
-    for arch, peak in peaks.items():
-        print(f"{arch} at full width and depth (the serve CLI's config): "
-              f"torch.cuda.max_memory_allocated {peak} bytes "
-              f"({peak / 2**30:.2f} GiB)", flush=True)
-    phase("serve (d): reduced configs, card against the CPU port")
-    reduced_phase(torch, dev)
-    train_launches, monitor_launches = train_phase(torch, dev, cli)
+    phase("replay (a): the zoo against the CPU port")
+    zoo_against_cpu(zoo, _recv(cpu_results, "phase 8 (a)"))
+    abba_cpu = _recv(cpu_results, "phase 10 (a)")
+    # the CPU port's worker is done: phase 12 (a)'s child runs from here,
+    # beside phases 10 and 11
+    dry = DryrunCLI()
+    try:
+        phase("ABBA (a): the Fig. 5 streams on the card against the CPU port")
+        abba = abba_phase(abba_card.result(), abba_cpu)
+        phase("serve (b): the serve CLI at full width")
+        for arch in FULL_DEPTH:
+            serve_cli_phase(arch)
+        phase("serve (c): every arch at full width in bf16")
+        peaks = full_width_phase(torch, dev)
+        for arch, peak in peaks.items():
+            print(f"{arch} at full width and depth (the serve CLI's config): "
+                  f"torch.cuda.max_memory_allocated {peak} bytes "
+                  f"({peak / 2**30:.2f} GiB)", flush=True)
+        phase("serve (d): reduced configs, card against the CPU port")
+        reduced_phase(torch, dev)
+        train_launches, monitor_launches = train_phase(torch, dev, cli)
+        _reset_launches()
+        dryrun_phase(torch, dev, dry)
+        if any(v for k, v in _launches().items() if k != "host_syncs"):
+            raise AssertionError(f"phase 12 launched a kernel: {_launches()}")
+    finally:
+        dry.stop()
     # the half-step's and the ewma kernel's launches are their own entry
     # points' (phases 3 and 5): the service launches neither
     for name in ("kmeans_assign", "ewma"):

@@ -13,7 +13,9 @@ Guarantees, as the reference's:
   * **atomic**: written to ``.tmp-<pid>-<step>`` then ``os.rename``d -- a
     crashed writer never corrupts the latest checkpoint;
   * **device-free**: leaves are stored whole on the host; restore puts
-    them on the caller's device;
+    them on the caller's device, or, given the shardings of a mesh
+    (``launch.specs.state_shardings``), lays each out in pieces over that
+    mesh's shard devices: restore *is* the reshard (``launch.elastic``);
   * **self-describing**: the manifest carries every leaf's name, shape and
     dtype (its ``treedef`` is a description of the port's state, for
     reading, not a JAX tree definition).
@@ -46,7 +48,7 @@ from repro_torch.ckpt import manifest as msgpack
 from repro_torch.models.params import stack_named, with_leaves
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
-           "CheckpointManager"]
+           "named_leaves", "CheckpointManager"]
 
 _SEP = "/"
 
@@ -100,7 +102,7 @@ def _sort_key(name: str):
                  for p in name.split(_SEP))
 
 
-def _named(tree, prefix: str = ""):
+def named_leaves(tree, prefix: str = ""):
     """(reference name, leaf) pairs of a state: dicts (plain or
     reference-named), lists and tuples, modules (their parameters, the
     superblocks stacked) and tensors."""
@@ -112,10 +114,10 @@ def _named(tree, prefix: str = ""):
             yield prefix + name, t
     elif isinstance(tree, dict):
         for k, v in tree.items():
-            yield from _named(v, f"{prefix}{k}{_SEP}")
+            yield from named_leaves(v, f"{prefix}{k}{_SEP}")
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _named(v, f"{prefix}{i}{_SEP}")
+            yield from named_leaves(v, f"{prefix}{i}{_SEP}")
     else:
         yield prefix[:-len(_SEP)], tree
 
@@ -133,7 +135,7 @@ def _flatten(tree) -> Dict[str, Any]:
     """Reference name -> (numpy leaf, dtype name), in the reference's
     order."""
     out = {}
-    for name, t in _named(tree):
+    for name, t in named_leaves(tree):
         dtype = (str(t.dtype).removeprefix("torch.") if torch.is_tensor(t)
                  else str(np.asarray(t).dtype))
         out[name] = (_to_numpy(t), dtype)
@@ -219,28 +221,39 @@ def _leaf_tensor(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)
 
 
-def _rebuild(target, prefix: str, read):
-    """``target``'s structure with each leaf read by its reference name."""
+def _rebuild(target, prefix: str, read, sharded: bool):
+    """``target``'s structure with each leaf read by its reference name; a
+    module becomes the dict of its reference-named leaves when ``sharded``
+    (its parameters cannot be pieces)."""
     if isinstance(target, nn.Module):
-        names = list(_named(target, prefix))
+        names = list(named_leaves(target, prefix))
         leaves = {n[len(prefix):]: read(n, t) for n, t in names}
+        if sharded:
+            return leaves
         trainable = any(p.requires_grad for p in target.parameters())
         return with_leaves(target, leaves, requires_grad=trainable)
     if isinstance(target, dict):
-        return {k: _rebuild(v, f"{prefix}{k}{_SEP}", read)
+        return {k: _rebuild(v, f"{prefix}{k}{_SEP}", read, sharded)
                 for k, v in target.items()}
     if isinstance(target, (list, tuple)):
-        return type(target)(_rebuild(v, f"{prefix}{i}{_SEP}", read)
+        return type(target)(_rebuild(v, f"{prefix}{i}{_SEP}", read, sharded)
                             for i, v in enumerate(target))
     return read(prefix[:-len(_SEP)], target)
 
 
 def restore_checkpoint(directory: str | os.PathLike, step: int, target, *,
-                       device=None):
+                       device=None, shardings=None):
     """Restore into the structure of ``target`` (a state as ``save_
-    checkpoint`` takes it).  Each leaf keeps the checkpoint's dtype and
-    goes to ``device``, or where ``target``'s leaf lives.  Returns
-    ``(state, manifest)``."""
+    checkpoint`` takes it; meta tensors do).  Each leaf keeps the
+    checkpoint's dtype and goes to ``device``, or where ``target``'s leaf
+    lives.  ``shardings``: a dict from every leaf's reference name to a
+    ``sharding.layout.NamedSharding`` (``launch.specs.state_shardings``);
+    each leaf then comes back as a ``Sharded``, its pieces on that mesh's
+    shard devices (a module's part as the dict of its reference-named
+    leaves), and ``device`` must be None.  Returns ``(state, manifest)``."""
+    if shardings is not None and device is not None:
+        raise ValueError("pass device or shardings, not both: the shardings' "
+                         "mesh places each leaf")
     path = Path(directory) / f"ckpt_{step:08d}"
     manifest = msgpack.unpackb((path / "manifest.msgpack").read_bytes())
     decompress = _make_decompressor(manifest.get("codec", "zstd"))
@@ -256,11 +269,16 @@ def restore_checkpoint(directory: str | os.PathLike, step: int, target, *,
         if tuple(arr.shape) != expect:
             raise ValueError(
                 f"{name}: checkpoint shape {arr.shape} != {expect}")
+        if shardings is not None:
+            if name not in shardings:
+                raise KeyError(f"no sharding for leaf {name!r}")
+            return shardings[name].shard(_leaf_tensor(arr, meta["dtype"],
+                                                      "cpu"))
         dev = device if device is not None else getattr(leaf, "device",
                                                         "cpu")
         return _leaf_tensor(arr, meta["dtype"], dev)
 
-    return _rebuild(target, "", read), manifest
+    return _rebuild(target, "", read, shardings is not None), manifest
 
 
 class CheckpointManager:
@@ -278,9 +296,9 @@ class CheckpointManager:
         return save_checkpoint(self.directory, step, state, extra=extra,
                                keep=self.keep)
 
-    def restore_latest(self, target, device=None):
+    def restore_latest(self, target, device=None, shardings=None):
         step = latest_step(self.directory)
         if step is None:
             return None, None
         return restore_checkpoint(self.directory, step, target,
-                                  device=device)
+                                  device=device, shardings=shardings)

@@ -19,6 +19,11 @@ Train states travel as the reference's state tree: ``params`` as above,
 ``opt`` (AdamW's ``m``/``v``, Adafactor's ``f`` with ``vr``/``vc`` or
 ``v`` under each parameter's path), ``step`` and, for the compressed step,
 ``error_fb``; outside ``params`` a 2-byte leaf is bf16.
+
+Decode states travel as a dict from each leaf's reference name (its
+``_path_str``: ``blocks/0/0/k``, ``pos``) to a numpy array, the superblocks
+stacked on the leading axis as the reference's state holds them
+(``launch.specs.decode_state_leaves``); bf16 as ``uint16``.
 """
 from __future__ import annotations
 
@@ -34,7 +39,8 @@ from repro_torch.models.params import leaf_path, path_str, stack_named
 
 __all__ = ["receiver_state_from_numpy", "receiver_state_to_numpy",
            "params_from_numpy", "params_to_numpy", "train_state_from_numpy",
-           "train_state_to_numpy"]
+           "train_state_to_numpy", "decode_state_to_numpy",
+           "decode_state_from_numpy"]
 
 _CLASSES = {cls._fields: cls
             for cls in (ReceiverState, DigitizerState, CompressorState,
@@ -73,7 +79,7 @@ def receiver_state_to_numpy(state):
 
 
 def _tensor(arr, dtype: torch.dtype) -> torch.Tensor:
-    arr = np.ascontiguousarray(arr)
+    arr = np.asarray(arr, order="C")  # keeps a 0-d leaf 0-d
     if dtype == torch.bfloat16:
         if arr.dtype.itemsize != 2:
             raise TypeError(f"a bfloat16 leaf needs 2-byte words, got "
@@ -220,3 +226,30 @@ def train_state_to_numpy(state):
         out["error_fb"] = _unflatten(efb[0] if isinstance(efb, (list, tuple))
                                      else efb)
     return out
+
+
+def decode_state_to_numpy(state) -> dict:
+    """The port's decode state -> ``{reference name: numpy array}``, the
+    superblocks stacked (bf16 as ``uint16``)."""
+    from repro_torch.launch.specs import decode_state_leaves
+
+    return {k: _arr(t) for k, t in decode_state_leaves(state).items()}
+
+
+def decode_state_from_numpy(leaves, cfg, device=None):
+    """``{reference name: numpy array}`` (a reference state flattened with
+    its ``_path_str``) -> the port's decode state of ``cfg`` on ``device``
+    (``cuda`` unless told otherwise), each leaf in the dtype the port's
+    state holds it in.  Raises on a missing leaf."""
+    from repro_torch.launch.specs import map_decode_state
+    from repro_torch.models.transformer import init_decode_state
+
+    device = resolve_device(device)
+    template = init_decode_state(cfg, 1, 1, device="meta")
+
+    def leaf(name, t, block):
+        arr = np.asarray(leaves[name])
+        return _tensor(arr if block is None else arr[block], t.dtype).to(
+            device)
+
+    return map_decode_state(template, leaf)

@@ -6,7 +6,8 @@ device (``cuda`` unless ``--device cpu``).  The step is the port's
 ``make_train_step``, run eagerly; the pipeline symbolizes on the same
 device in its background thread.  The report also holds each step's
 seconds and the seconds it waited on the batcher (the port's own
-measurements; the CLI prints them after the reference's lines).  The CLI
+measurements; the CLI prints them after the reference's lines).  An
+elastic restart onto a new mesh is ``launch.elastic.resume_on_mesh``.  The CLI
 also takes ``--ckpt-every`` and ``--log-every``, ``train_loop``'s own
 parameters at its defaults, which the reference's CLI does not expose.
 

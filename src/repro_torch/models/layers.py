@@ -57,12 +57,14 @@ def model_dtype(cfg) -> torch.dtype:
 def normal(gen: Optional[torch.Generator], shape, std: float, dtype,
            device) -> torch.Tensor:
     """``N(0, std^2)`` drawn in f32 from ``gen`` on ``device``, then cast;
-    on the ``meta`` device an empty tensor of the shape (no draw)."""
+    on the ``meta`` device an empty tensor of the shape (no draw).  The
+    scale is applied in place: one f32 copy of the leaf at a time (an
+    expert leaf of jamba's is 12 GiB in f32)."""
     device = torch.device(device)
     if device.type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -23,6 +23,7 @@ import torch
 from repro_torch.models.layers import (
     GATED_MLP, ParamTree, init_dense, mlp_activate, model_dtype, normal,
 )
+from repro_torch.sharding import constrain
 
 __all__ = ["moe_init", "moe_apply"]
 
@@ -52,10 +53,14 @@ def _top_k(probs: torch.Tensor, k: int):
 
 def _expert_ffn(params, cfg, buf):
     """buf: (e, cap, d) -> (e, cap, d), each expert's FFN in the model dtype
-    with f32 accumulation."""
+    with f32 accumulation.  The constraints pin the reference's expert
+    layout (experts over ``model``, d_ff over ``data``)."""
+    buf = constrain(buf, "experts_act", None, None)
     h = torch.bmm(buf, params.wi_moe)
+    h = constrain(h, "experts_act", None, "moe_f_act")
     h = mlp_activate(h, cfg.mlp_kind, buf.dtype)
-    return torch.bmm(h, params.wo_moe)
+    h = constrain(h, "experts_act", None, "moe_f_act")
+    return constrain(torch.bmm(h, params.wo_moe), "experts_act", None, None)
 
 
 def _per_group(params, cfg, xg, gi, gv, cap: int):

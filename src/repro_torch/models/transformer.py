@@ -37,6 +37,7 @@ from repro_torch.models.layers import (
     ParamTree, embed_init, init_dense, matmul_f32, mlp_apply, mlp_init,
     model_dtype, rms_norm, sinusoid_pos,
 )
+from repro_torch.sharding import constrain
 
 __all__ = [
     "init_params", "forward", "loss_fn", "chunked_xent", "init_decode_state",
@@ -160,6 +161,7 @@ def _layer_fwd(p, cfg, spec, x, aux, *, enc_mem, mode_override, collect,
         else:
             y = mlp_apply(p.mlp, h2, cfg.mlp_kind)
         x = x + y
+    x = constrain(x, "batch", "seq_block", "embed")
     return x, aux, cache
 
 
@@ -224,6 +226,7 @@ def forward(params, cfg, tokens, *, prefix_embeds=None, enc_frames=None,
     x = _embed_tokens(params, cfg, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    x = constrain(x, "batch", "seq_block", "embed")
 
     enc_mem = (_encode(params, cfg, enc_frames, remat)
                if enc_frames is not None else None)
@@ -246,7 +249,7 @@ def forward(params, cfg, tokens, *, prefix_embeds=None, enc_frames=None,
 def _unembed(params, cfg, x):
     """f32 logits from the model-dtype activations and head."""
     w = params.embed.T if cfg.tie_embeddings else params.lm_head
-    return matmul_f32(x, w.to(x.dtype))
+    return constrain(matmul_f32(x, w.to(x.dtype)), "batch", "seq", "vocab")
 
 
 def chunked_xent(params, cfg, x, labels, *, chunk: int = 512):
@@ -392,6 +395,7 @@ def decode_step(params, cfg, state, token):
     """
     pos = state["pos"]
     x1 = _embed_tokens(params, cfg, token, pos0=pos)
+    x1 = constrain(x1, "batch", None, "embed")
 
     new_state = dict(state)
     if cfg.n_blocks:

@@ -1,8 +1,9 @@
 """The port's package re-exports against the reference's (ROADMAP Queue C
 16): ``repro_torch.data`` re-exports what ``repro.data`` does (the
-synthetic data; since the training slice the tokenizer and pipeline), and
+synthetic data; since the training slice the tokenizer and pipeline),
 ``repro_torch.kernels`` imports ``ops`` and ``ref`` as ``repro.kernels``
-does, without building a kernel.
+does, without building a kernel, and ``repro_torch.sharding`` exports the
+names ``repro.sharding`` does.
 """
 import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import os
@@ -15,8 +16,10 @@ import pytest
 
 import repro.data
 import repro.kernels
+import repro.sharding
 import repro_torch.data
 import repro_torch.kernels
+import repro_torch.sharding
 
 REPO = Path(__file__).resolve().parents[1]
 DATA_NAMES = ["FAMILIES", "make_dataset", "make_fleet"]
@@ -81,3 +84,14 @@ def test_importing_kernels_builds_nothing():
                           text=True, env=env, cwd=str(REPO), timeout=300)
     assert proc.returncode == 0 and proc.stdout.strip() == "OK", \
         proc.stdout + proc.stderr
+
+
+def test_sharding_reexports():
+    """``repro_torch.sharding`` exports the reference's names, each a
+    function of the port's own modules."""
+    assert sorted(repro_torch.sharding.__all__) == sorted(
+        repro.sharding.__all__)
+    for name in repro.sharding.__all__:
+        fn = getattr(repro_torch.sharding, name)
+        assert callable(fn) and fn.__module__.startswith(
+            "repro_torch.sharding."), name
