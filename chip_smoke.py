@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of SymED on one GPU and check it.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``.  Twelve
+Run from the root of a checkout: ``python3 chip_smoke.py``.  Thirteen
 phases, each raising on failure:
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
@@ -96,7 +96,9 @@ phases, each raising on failure:
    endpoints and pieces bitwise, DTW readings equal, at least 99% of
    symbols equal, and the closes through the Lloyd kernel.  Each part
    prints its wall time, host syncs and kernel launches, counted from 0
-   just before it;
+   just before it.  (a)-(b) run in a worker process of their own on the
+   card (``FleetCard``), started after phase 7 and read here, so they run
+   beside phase 8;
 10. the ABBA baseline and the LM serving path: (a) ``abba_encode`` on the
    card (its k-search through the Lloyd kernel) on the five families of
    ``make_dataset`` at the Fig. 5 settings (4 series x 1000 points, seed
@@ -168,12 +170,28 @@ phases, each raising on failure:
    shard devices: every leaf in 4 pieces of its spec's shape, gathered
    bitwise; (d) the reduced serve path (prefill, then greedy decode steps)
    of a dense, an MoE and a recurrent config under ``use_mesh_rules`` on the
-   multi-pod mesh, bitwise equal to the same path without it.
+   multi-pod mesh, bitwise equal to the same path without it;
+13. symlint on the card (``repro_torch.analysis``, no kernel of its own):
+   (a) the sync inventory of phase 6's service at its configuration
+   (``_stream_windows``: 256 sessions of ``make_fleet(256, 2048, seed=0)``,
+   ``SYMLINT_WARMUP`` 64-point windows of warm-up, then
+   ``SYMLINT_MEASURED`` measured ones; raw in, then compressed in from
+   phase 7 (a)'s senders, each on a 256-slot ``StreamServer`` through the
+   Lloyd kernel).  Two counters watch the same measured rounds:
+   ``synccount.SyncCounter`` (a function mode and a dispatch mode) and
+   ``torch.cuda.set_sync_debug_mode("warn")``
+   (``synccount.SyncDebugRecorder``), both keyed by entry, site and caller.
+   They must agree key for key (else the first key where they differ is
+   named), and the drive must launch ``kmeans_lloyd``.  The inventory is
+   printed: syncs per round by entry, site and caller.  (b) beside (a),
+   ``python -m repro_torch.analysis --deep`` in a child process, on the
+   card: every drive within the card's budgets, every probe's dtypes
+   clean, exit 0.
 
 The last two lines are a JSON summary of every kernel (``launches`` from
 phase 6, ``launches_abba`` from phase 10 (a), ``launches_train_step``
-and ``launches_train_monitor`` from phase 11) and ``{"ok": true,
-"device": {...}}``.
+and ``launches_train_monitor`` from phase 11, ``launches_symlint`` from
+phase 13) and ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --train-only`` builds the kernels and runs only
 phase 11.  ``python3 chip_smoke.py --fleet-depths 1024,1280`` builds the
@@ -310,6 +328,9 @@ DRYRUN_STEPS = 5
 ELASTIC_ARCH, ELASTIC_SHARDS, ELASTIC_MODEL = "olmoe-1b-7b", 4, 2
 RULES_ARCHS = ("codeqwen1.5-7b", "olmoe-1b-7b", "xlstm-125m")
 RULES_PROMPT, RULES_GEN = (4, 16), 4
+# phase 13 (a): phase 6's service at its configuration, this many windows
+# of warm-up, then this many measured under both counters
+SYMLINT_WARMUP, SYMLINT_MEASURED = 4, 8
 
 
 _T0 = time.perf_counter()
@@ -1219,19 +1240,27 @@ def _sender_half(torch, cfg, data, dev, window):
     return rounds, tails
 
 
-def _receiver_half(torch, cfg, rounds, tails, dev, window, clock):
-    """Phase 7 (a)'s edge: a ``StreamServer`` with the kernel on that only
-    digitizes.  Session ``s{r}`` has phase 6's key for row ``r``."""
+def _stream_server(cfg, n_sessions, dev, window, **kw):
+    """A ``StreamServer`` of ``n_sessions`` slots digitizing every window,
+    with sessions ``s0`` ... open, ``s{r}`` on phase 6's key for row
+    ``r``."""
     from repro_torch.core import prng
     from repro_torch.launch.stream import StreamServer
 
-    sids = list(rounds[0])
-    server = StreamServer(cfg, max_sessions=len(sids), window_cap=window,
-                          digitize_every_k=1, use_kernel=True, device=dev,
-                          clock=clock)
+    server = StreamServer(cfg, max_sessions=n_sessions, window_cap=window,
+                          digitize_every_k=1, device=dev, **kw)
     base = prng.key(0)
-    for r, sid in enumerate(sids):
-        server.open(sid, key=prng.fold_in(base, r + 1))
+    for r in range(n_sessions):
+        server.open(f"s{r}", key=prng.fold_in(base, r + 1))
+    return server
+
+
+def _receiver_half(torch, cfg, rounds, tails, dev, window, clock):
+    """Phase 7 (a)'s edge: a ``StreamServer`` with the kernel on that only
+    digitizes.  Session ``s{r}`` has phase 6's key for row ``r``."""
+    sids = list(rounds[0])
+    server = _stream_server(cfg, len(sids), dev, window, use_kernel=True,
+                            clock=clock)
     labels = {sid: [] for sid in sids}
     ends = {sid: [] for sid in sids}
     t0 = time.perf_counter()
@@ -2050,6 +2079,59 @@ class AbbaCard:
             raise RuntimeError(f"phase 10 (a)'s card worker failed:\n{got}")
         got["waited"] = time.perf_counter() - t0
         return got
+
+    def stop(self):
+        if self._proc.is_alive():
+            self._proc.terminate()
+        self._proc.join(timeout=60)
+
+
+def _fleet_card_worker(conn, dev) -> None:
+    """Worker process: phase 9 (a)-(b) on ``dev``, its printed lines kept
+    and sent back with its seconds (``("ok", {"text", "seconds"})``), or
+    the failure.  Host-bound, so it runs in a process of its own beside
+    phase 8."""
+    try:
+        import contextlib
+        import io
+
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            fleet_phase(torch, dev)
+        conn.send(("ok", {"text": out.getvalue(),
+                          "seconds": time.perf_counter() - t0}))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+class FleetCard:
+    """Phase 9 (a)-(b) on the card in a worker process: the smoke starts it
+    after phase 7 and reads it where phase 9 begins, so it runs beside
+    phase 8.  ``stop`` ends it if it is still going."""
+
+    def __init__(self, dev):
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, send = ctx.Pipe(duplex=False)
+        self._proc = ctx.Process(target=_fleet_card_worker,
+                                 args=(send, dev), daemon=True)
+        self._proc.start()
+        send.close()
+
+    def result(self):
+        t0 = time.perf_counter()
+        status, got = self._conn.recv()
+        if status != "ok":
+            raise RuntimeError(f"phase 9 (a)-(b)'s worker failed:\n{got}")
+        print(got["text"], end="", flush=True)
+        print(f"fleet (a)-(b): {got['seconds']:.1f} s in a worker process; "
+              f"waited {time.perf_counter() - t0:.1f} s for it", flush=True)
 
     def stop(self):
         if self._proc.is_alive():
@@ -3013,6 +3095,153 @@ def dryrun_phase(torch, dev, dry: DryrunCLI):
           f"{dry.seconds:.1f} s of (a)'s child", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: symlint's sync inventory on the card
+# ---------------------------------------------------------------------------
+
+def _first_difference(a, b):
+    """The first key (in sorted order) whose counts differ, with both."""
+    for key in sorted(set(a) | set(b)):
+        if a.get(key, 0) != b.get(key, 0):
+            return key, a.get(key, 0), b.get(key, 0)
+    return None
+
+
+def _stream_windows(torch, cfg, data, dev, window, warmup, measured,
+                    watches):
+    """Phase 13's drive: ``data (S, T)`` as ``S`` sessions of phase 6's
+    service (``_stream_server``), raw in, then compressed in (phase 7 (a)'s
+    senders, ``_sender_half``) on a second server: ``warmup`` windows, then
+    ``measured`` windows inside the context managers ``watches()`` gives.
+    Returns ``{mode: (watches, seconds of the measured window, rounds)}``
+    for ``"raw"`` and ``"pieces"``."""
+    import contextlib
+
+    n = warmup + measured
+    data = data[:, : n * window]
+    pieces, _ = _sender_half(torch, cfg, data, dev, window)
+    out = {}
+    for mode in ("raw", "pieces"):
+        server = _stream_server(cfg, data.shape[0], dev, window)
+        sids = list(pieces[0])
+
+        def serve_window(w):
+            if mode == "raw":
+                server.ingest_many({sid: data[r, w * window: (w + 1) * window]
+                                    for r, sid in enumerate(sids)})
+            else:
+                server.ingest_pieces_many(pieces[w])
+
+        for w in range(warmup):
+            serve_window(w)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        active = list(watches())
+        steps = server.totals["steps"]
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            for watch in active:
+                stack.enter_context(watch)
+            for w in range(warmup, n):
+                serve_window(w)
+        out[mode] = (active, time.perf_counter() - t0,
+                     server.totals["steps"] - steps)
+    return out
+
+
+def _deep_tier_child():
+    """``python -m repro_torch.analysis --deep --format json`` (on the card:
+    its default), started so that it runs beside phase 13's drive."""
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join(
+               [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", "--deep", "--format",
+         "json"], cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def _deep_tier_result(child, t0):
+    """(b): the deep tier on the card exits 0: every drive within the card's
+    budgets, every probe's dtypes clean."""
+    out, err = child.communicate(timeout=300)
+    seconds = time.perf_counter() - t0
+    try:
+        doc = json.loads(out)
+    except ValueError:
+        doc = None
+    if child.returncode != 0 or doc is None or doc["findings"]:
+        shown = ([f"{f['path']}:{f['line']}: {f['rule']}: {f['message']}"
+                  for f in doc["findings"]] if doc else [out[-2000:]])
+        raise AssertionError(
+            f"symlint (b): `python -m repro_torch.analysis --deep` on the "
+            f"card exited {child.returncode}:\n" + "\n".join(shown)
+            + f"\n{err[-2000:]}")
+    print(f"symlint (b): `python -m repro_torch.analysis --deep` on the card "
+          f"exited 0, 0 findings ({len(doc['suppressed'])} suppressed), "
+          f"read {seconds:.1f} s after it started beside (a); syncs by drive and entry (each "
+          f"within its `budget=`): {doc['sync_counts']}", flush=True)
+
+
+def symlint_phase(torch, dev):
+    """Phase 13: (a) phase 6's service at its configuration, raw in then
+    compressed in, under ``SyncCounter`` and ``set_sync_debug_mode("warn")``
+    at once; the two must agree key for key.  Prints the inventory (syncs
+    per round by entry, site and caller) and returns the kernels' launches,
+    counted from 0 just before it.  (b) beside it, the deep tier on the
+    card in a child process, which must exit 0."""
+    from repro_torch.analysis import deep
+    from repro_torch.analysis.synccount import SyncCounter, SyncDebugRecorder
+    from repro_torch.data.synthetic import make_fleet
+
+    cfg = _paper_cfg()
+    data = make_fleet(SESSIONS, POINTS, seed=0)
+    group, attributor = deep.drive_attributor(ROOT)
+    print(f"symlint: stream drive entries "
+          f"{', '.join(e.qualname for e in group)}", flush=True)
+    t0 = time.perf_counter()
+    child = _deep_tier_child()
+    try:
+        _reset_launches()
+        runs = _stream_windows(
+            torch, cfg, data, dev, WINDOW, SYMLINT_WARMUP, SYMLINT_MEASURED,
+            watches=lambda: [SyncCounter(dev, attributor),
+                             SyncDebugRecorder(attributor)])
+        torch.cuda.synchronize()
+        n = _launches()
+        wall = time.perf_counter() - t0
+        _deep_tier_result(child, t0)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if n["kmeans_lloyd"] <= 0:
+        raise AssertionError(f"symlint: the stream drive launched no Lloyd "
+                             f"kernel: {n}")
+    for mode, ((counter, recorder), seconds, rounds) in runs.items():
+        for key, count in sorted(counter.counts.items()):
+            entry, site, caller = key
+            print(f"symlint {mode}: {entry} {site} <- {caller}: {count} "
+                  f"({count / rounds:.2f} per round)", flush=True)
+        print(f"symlint {mode}: {counter.total} syncs in {rounds} rounds "
+              f"({counter.total / rounds:.2f} per round; by entry "
+              f"{counter.by_entry()}), {seconds:.2f} s measured under both "
+              f"counters; set_sync_debug_mode saw {recorder.total}",
+              flush=True)
+        diff = _first_difference(counter.counts, recorder.counts)
+        if diff is not None:
+            key, a, b = diff
+            raise AssertionError(
+                f"symlint {mode}: the sync counter and set_sync_debug_mode "
+                f"disagree at {key}: {a} against {b} (by entry "
+                f"{counter.by_entry()} against {recorder.by_entry()})")
+    print(f"symlint (a): counters agree key for key, raw in and compressed "
+          f"in; {wall:.1f} s, Lloyd launches {n['kmeans_lloyd']}, DTW "
+          f"{n['dtw']}, half-step {n['kmeans_assign']}, EWMA {n['ewma']}",
+          flush=True)
+    return n
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3135,6 +3364,7 @@ def _card_phases(torch, dev, smi, cpu_results) -> int:
     # own; all are host-bound, so the wall times of phases 8-10 are read
     # with them running
     cli = TrainCLI()
+    fleet = FleetCard(dev)
     abba = None
     try:
         phase("replay (a): the scenario zoo")
@@ -3148,18 +3378,19 @@ def _card_phases(torch, dev, smi, cpu_results) -> int:
         abba = AbbaCard(dev)
         phase("end to end: cuda against the CPU port")
         cross_device_phase(torch, dev, krn, cpu_results)
-        return _phases_9_to_12(torch, dev, smi, cpu_results, measured,
-                               launches, cli, zoo, abba)
+        return _phases_9_to_13(torch, dev, smi, cpu_results, measured,
+                               launches, cli, zoo, abba, fleet)
     finally:
         cli.stop()
+        fleet.stop()
         if abba is not None:
             abba.stop()
 
 
-def _phases_9_to_12(torch, dev, smi, cpu_results, measured, launches, cli,
-                    zoo, abba_card):
-    phase("fleet (a)-(b): run_fleet on the paper's fleet")
-    fleet_phase(torch, dev)
+def _phases_9_to_13(torch, dev, smi, cpu_results, measured, launches, cli,
+                    zoo, abba_card, fleet_card):
+    phase("fleet (a)-(b): run_fleet on the paper's fleet (its worker)")
+    fleet_card.result()
     phase("sharded (c): the stream CLI with --devices 4")
     sharded_cli_phase(torch, dev)
     phase("sharded (d): a 4-block slot table against one block")
@@ -3191,6 +3422,8 @@ def _phases_9_to_12(torch, dev, smi, cpu_results, measured, launches, cli,
             raise AssertionError(f"phase 12 launched a kernel: {_launches()}")
     finally:
         dry.stop()
+    phase("symlint: (a) the service's syncs under two counters, (b) --deep")
+    symlint = symlint_phase(torch, dev)
     # the half-step's and the ewma kernel's launches are their own entry
     # points' (phases 3 and 5): the service launches neither
     for name in ("kmeans_assign", "ewma"):
@@ -3212,6 +3445,7 @@ def _phases_9_to_12(torch, dev, smi, cpu_results, measured, launches, cli,
              "launches_abba": abba[row["name"]],
              "launches_train_step": train_launches[row["name"]],
              "launches_train_monitor": monitor_launches[row["name"]],
+             "launches_symlint": symlint[row["name"]],
              **measured[row["name"]], "library_ms": None} for row in rows]
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -7,16 +7,18 @@ numpy only.  Entry points run on ``cuda`` unless the caller passes
 """
 from __future__ import annotations
 
-import torch
-
 __all__ = ["resolve_device"]
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """The device an entry point runs on: ``cuda`` unless told otherwise.
 
     Raises when CUDA was asked for (explicitly or by default) and is absent.
+    ``torch`` is imported here, not with the package, so that
+    ``repro_torch.analysis``'s AST tier runs without it.
     """
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -412,7 +412,7 @@ def digitizer_delta(prev_n, state: DigitizerState, symbols_online, endpoints):
     return labels.to(torch.int32), ends.to(torch.float32), n_new
 
 
-def digitize_span_table(state: DigitizerState, lengths, incs, lo, hi, *,
+def digitize_span_table(state: DigitizerState, lengths, incs, lo, hi, *,  # symlint-torch: entry(pair=span/table, shapes=pair-span-table)
                         tol: float, scl: float, k_min: int, k_max_active: int,
                         lloyd_iters: int = 10, use_kernel: bool = False):
     """Slot-table batch of ``digitize_span``: per-lane spans, shared loop.
@@ -442,7 +442,7 @@ def digitize_span_table(state: DigitizerState, lengths, incs, lo, hi, *,
     return st, syms
 
 
-def digitize_span(state: DigitizerState, lengths, incs, lo, hi, *,
+def digitize_span(state: DigitizerState, lengths, incs, lo, hi, *,  # symlint-torch: entry(pair=span/slot, shapes=pair-span-slot)
                   tol: float, scl: float, k_min: int, k_max_active: int,
                   lloyd_iters: int = 10):
     """One slot ingests buffer slots ``lo <= idx < hi`` (``lengths``/``incs``
@@ -457,7 +457,7 @@ def digitize_span(state: DigitizerState, lengths, incs, lo, hi, *,
     return DigitizerState(*(leaf[0] for leaf in st)), syms[0]
 
 
-def digitize_pieces(lengths, incs, n_pieces, key, *, k_cap: int = 100,
+def digitize_pieces(lengths, incs, n_pieces, key, *, k_cap: int = 100,  # symlint-torch: entry(drive=digitize, budget=19, cpu_budget=74, shapes=digitize-pieces)
                     tol: float = 0.5, scl: float = 1.0, k_min: int = 3,
                     k_max_active: int = 100, lloyd_iters: int = 10) -> dict:
     """Run the receiver over one padded piece sequence (``(n_max,)``).

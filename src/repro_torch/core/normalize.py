@@ -16,7 +16,7 @@ __all__ = ["EwmState", "ewm_init", "ewm_coeffs", "ewm_step", "ewm_scan",
            "standardize", "fma32", "sqrt32"]
 
 
-def fma32(a, b, c) -> torch.Tensor:
+def fma32(a, b, c) -> torch.Tensor:  # symlint-torch: f64-ok: rounds a fused multiply-add to odd in f64
     """f32 ``a * b + c`` with one rounding, as a fused multiply-add does.
 
     The product of two f32 values is exact in f64.  The f64 sum ``s`` is
@@ -40,7 +40,7 @@ def fma32(a, b, c) -> torch.Tensor:
     return s.float()
 
 
-def sqrt32(x: torch.Tensor) -> torch.Tensor:
+def sqrt32(x: torch.Tensor) -> torch.Tensor:  # symlint-torch: f64-ok: a correctly rounded f32 root, taken in f64
     """Correctly rounded f32 square root, as the reference's compiled
     ``sqrt`` gives it.  Taken in f64 and rounded once: 53 bits hold the
     root of a 24-bit value closely enough that the rounding to f32 is

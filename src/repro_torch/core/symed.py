@@ -236,7 +236,7 @@ def _check_cadence(digitize_every_k: int) -> None:
         raise ValueError(f"digitize_every_k must be >= 0, got {digitize_every_k}")
 
 
-def symed_receive_masked_chunk_table(
+def symed_receive_masked_chunk_table(  # symlint-torch: entry(pair=chunk/table, shapes=pair-chunk-table)
     windows: torch.Tensor,
     n_valid: torch.Tensor,
     cfg: SymEDConfig,
@@ -269,7 +269,7 @@ def symed_receive_masked_chunk_table(
         use_kernel=use_kernel, mark=mark)
 
 
-def symed_receive_masked_pieces_table(
+def symed_receive_masked_pieces_table(  # symlint-torch: entry(pair=pieces/table, shapes=pair-pieces-table)
     piece_endpoints: torch.Tensor,
     piece_steps: torch.Tensor,
     n_valid: torch.Tensor,
@@ -330,7 +330,7 @@ def _unbatch1(tree):
     return tree[0]
 
 
-def symed_receive_masked_chunk(ts_chunk, n_valid, cfg: SymEDConfig,
+def symed_receive_masked_chunk(ts_chunk, n_valid, cfg: SymEDConfig,  # symlint-torch: entry(pair=chunk/slot, shapes=pair-chunk-slot)
                                state: ReceiverState, *,
                                digitize_every_k: int = 1):
     """One slot ingests the first ``n_valid`` points of ``ts_chunk (C,)``."""
@@ -340,7 +340,7 @@ def symed_receive_masked_chunk(ts_chunk, n_valid, cfg: SymEDConfig,
     return _unbatch1(table), _unbatch1(info)
 
 
-def symed_receive_masked_pieces(piece_endpoints, piece_steps, n_valid, hello,
+def symed_receive_masked_pieces(piece_endpoints, piece_steps, n_valid, hello,  # symlint-torch: entry(pair=pieces/slot, shapes=pair-pieces-slot)
                                 t_seen, cfg: SymEDConfig,
                                 state: ReceiverState, *,
                                 digitize_every_k: int = 1):
@@ -398,7 +398,7 @@ def _receive_chunk_table(chunk, cfg: SymEDConfig,
     return table, info
 
 
-def symed_receive_chunk(ts_chunk, cfg: SymEDConfig,
+def symed_receive_chunk(ts_chunk, cfg: SymEDConfig,  # symlint-torch: entry(drive=chunked, budget=218, cpu_budget=458, shapes=receive-chunk)
                         state: Optional[ReceiverState] = None, key=None, *,
                         digitize_every_k: int = 1, device=None):
     """The online receiver of one stream: ingest one ``(C,)`` window.
@@ -457,7 +457,7 @@ def _score(out, ts, lens, incs, n_pieces, t0) -> None:
     out["re_symbols"] = ops.dtw(ts, rec_s)
 
 
-def symed_receive_finish(state: ReceiverState, cfg: SymEDConfig,
+def symed_receive_finish(state: ReceiverState, cfg: SymEDConfig,  # symlint-torch: entry(drive=chunked, budget=8, cpu_budget=18, shapes=receive-finish)
                          ts=None, reconstruct: bool = False, *,
                          with_delta: bool = False,
                          use_kernel: bool = False) -> Dict[str, Any]:
@@ -559,7 +559,7 @@ def symed_encode(ts, cfg: SymEDConfig, key, reconstruct: bool = True,
     return _unbatch1(out)
 
 
-def symed_encode_chunk(ts_chunk, cfg: SymEDConfig,
+def symed_encode_chunk(ts_chunk, cfg: SymEDConfig,  # symlint-torch: entry(drive=chunked, budget=132, cpu_budget=124, shapes=encode-chunk)
                        state: Optional[CompressorState] = None, device=None):
     """Resumable sender: ingest one ``(..., C)`` window of the stream.
 
@@ -579,7 +579,7 @@ def symed_encode_chunk(ts_chunk, cfg: SymEDConfig,
                    "length": ev.length, "inc": ev.inc}
 
 
-def symed_finish(events: Dict[str, torch.Tensor], state: CompressorState,
+def symed_finish(events: Dict[str, torch.Tensor], state: CompressorState,  # symlint-torch: entry(drive=chunked, budget=90, cpu_budget=344, shapes=finish)
                  cfg: SymEDConfig, key, ts, reconstruct: bool = True,
                  device=None) -> Dict[str, torch.Tensor]:
     """Close a chunked stream: flush the open segment, wire-compact,

@@ -118,8 +118,8 @@ def validate_cli_args(ap: argparse.ArgumentParser, args) -> None:
         ap.error(f"--pods must be >= 1, got {args.pods}")
 
 
-def _encode_slab(slab, keys, cfg: SymEDConfig, chunk_len, digitize_every_k,
-                 reconstruct, use_kernel: bool = False):
+def _encode_slab(slab, keys, cfg: SymEDConfig, chunk_len, digitize_every_k,  # symlint-torch: entry(drive=fleet, budget=127, cpu_budget=314, shapes=encode-slab)
+                 reconstruct, use_kernel: bool = False):  # symlint-torch: hot-path
     """Per-shard body: batched SymED over a local ``(b, T)`` sub-slab and
     its ``(b, 2)`` keys.
 

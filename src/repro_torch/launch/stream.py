@@ -512,7 +512,7 @@ class StreamServer:
         """Feed one ragged arrival; returns its symbol-delta frame."""
         return self.ingest_many({stream_id: window})[stream_id]
 
-    def ingest_many(self, arrivals: Dict[str, object]) -> Dict[str, dict]:
+    def ingest_many(self, arrivals: Dict[str, object]) -> Dict[str, dict]:  # symlint-torch: hot-path; symlint-torch: entry(drive=stream, budget=2, cpu_budget=2)
         """Feed concurrent arrivals through one table step per round.
 
         ``arrivals`` maps open stream ids to 1-D float windows of any
@@ -551,7 +551,7 @@ class StreamServer:
         self._run_dtw_monitor()
         return _finalize_deltas(deltas)
 
-    def _run_rounds(self, sids, rounds, pack_round, dispatch, harvest,
+    def _run_rounds(self, sids, rounds, pack_round, dispatch, harvest,  # symlint-torch: hot-path
                     mode=""):
         """Run ``rounds`` table steps, double-buffered: round ``r`` is
         dispatched, round ``r+1`` is packed on the host, and only then are
@@ -592,7 +592,7 @@ class StreamServer:
             self._harvest_flight(pend, harvest, deltas, mode)
         return deltas
 
-    def _harvest_flight(self, flight, harvest, deltas, mode) -> None:
+    def _harvest_flight(self, flight, harvest, deltas, mode) -> None:  # symlint-torch: hot-path
         """Copy one round's outputs to the host and fold them in; the
         latency is taken right after the copy."""
         active, packed, clock, t_arrive = flight
@@ -620,7 +620,7 @@ class StreamServer:
         return self._step_blocks(symed_receive_masked_pieces_table,
                                  host_args)
 
-    def _step_blocks(self, block_step, host_args):
+    def _step_blocks(self, block_step, host_args):  # symlint-torch: hot-path; symlint-torch: entry(drive=stream, budget=87, cpu_budget=195, shapes=table-step)
         """Stage each block's rows of the host arrays on its device, run
         ``block_step`` on the block, and join the blocks' packed outputs on
         the first device."""
@@ -650,11 +650,11 @@ class StreamServer:
             d["n_new"][:, None], d["emitted"].to(torch.int32)[:, None],
             info["t_seen"][:, None]], dim=1)
 
-    def _unpack(self, packed):
+    def _unpack(self, packed: torch.Tensor):  # symlint-torch: hot-path
         """Copy one round's packed outputs to the host (the round's one
         device-to-host copy): ``(labels, endpoints, n_new, emitted,
         t_seen)`` per slot."""
-        host = packed.cpu().numpy()
+        host = packed.cpu().numpy()  # sync: ok
         n_max = self.cfg.n_max
         if self.clock is not None:
             self.clock.mark("harvest")
@@ -662,7 +662,7 @@ class StreamServer:
         return (host[:, :n_max], host[:, n_max: 2 * n_max].view(np.float32),
                 *(host[:, 2 * n_max + i] for i in range(3)))
 
-    def _harvest_round(self, active, outs, clock, deltas) -> int:
+    def _harvest_round(self, active, outs, clock, deltas) -> int:  # symlint-torch: hot-path
         """Fold one raw-in round's outputs into the books; returns its new
         symbols."""
         labels, endpoints, n_new, emitted, t_seen = outs
@@ -685,7 +685,7 @@ class StreamServer:
                     self._dtw_due.add(sid)
         return total
 
-    def ingest_pieces_many(self, arrivals: Dict[str, dict]) -> Dict[str, dict]:
+    def ingest_pieces_many(self, arrivals: Dict[str, dict]) -> Dict[str, dict]:  # symlint-torch: hot-path; symlint-torch: entry(drive=stream, budget=2, cpu_budget=2)
         """Compressed-in counterpart of ``ingest_many``.
 
         Each arrival carries the pieces its sender's compressor finished:
@@ -744,7 +744,7 @@ class StreamServer:
                                   self._harvest_pieces_round, "_pieces")
         return _finalize_deltas(deltas)
 
-    def _harvest_pieces_round(self, active, outs, clock, deltas) -> int:
+    def _harvest_pieces_round(self, active, outs, clock, deltas) -> int:  # symlint-torch: hot-path
         """Fold one compressed-in round's outputs into the books: a round
         counts as a window where it carried pieces, and ``points_in``
         follows the senders' clocks.  Returns the round's new symbols."""
@@ -765,7 +765,7 @@ class StreamServer:
             sess.last_active = clock
         return total
 
-    def close(self, stream_id: str) -> dict:
+    def close(self, stream_id: str) -> dict:  # symlint-torch: hot-path; symlint-torch: entry(drive=stream, budget=80, cpu_budget=94)
         """Flush the tail, emit the closing delta frame, free the slot.
 
         Returns ``{"out", "delta", "symbols", "n_pieces", "t_seen", "dtw",
@@ -784,10 +784,11 @@ class StreamServer:
             sub = _map(lambda l: l[0], self._gather([sess.slot]))
             res = symed_receive_finish(sub, self.cfg, with_delta=True,
                                        use_kernel=self.use_kernel)
-            out = {k: v.cpu().numpy() for k, v in res.items()
+            out = {k: v.cpu().numpy() for k, v in res.items()  # sync: ok
                    if k != "symbol_delta"}
             d = out["symbol_delta"] = {
-                k: v.cpu().numpy() for k, v in res["symbol_delta"].items()}
+                k: v.cpu().numpy()  # sync: ok
+                for k, v in res["symbol_delta"].items()}
             n = int(d["n_new"])
             frame = DELTA_FRAME_HEADER_BYTES + DELTA_SYMBOL_BYTES * n
             delta = {"labels": d["labels"][:n],
@@ -903,7 +904,7 @@ class StreamServer:
             self.totals["shrinks"] += 1
             self.obs.tracer.instant("stream.shrink", {"capacity": target})
 
-    def _run_dtw_monitor(self) -> None:
+    def _run_dtw_monitor(self) -> None:  # symlint-torch: hot-path
         """Online reconstruction error for every session whose DTW cadence
         fired during this ingest call: DTW(raw so far, pieces so far).
 
@@ -936,7 +937,7 @@ class StreamServer:
             raw = torch.from_numpy(np.stack([raws[i] for i in rows]))
             readings[r] = ops.dtw(raw.to(self.device), rec,
                                   band=self.dtw_band)
-        for sess, val in zip(due, readings.cpu().tolist()):
+        for sess, val in zip(due, readings.cpu().tolist()):  # sync: ok
             sess.dtw = val
         self.monitor["dtw_readings"] += len(due)
         self.monitor["dtw_seconds"] += 1e-9 * (time.perf_counter_ns() - t_start)

@@ -642,7 +642,7 @@ class TransportServer:
         else:
             self._reply(conn, encode_error(sid, "unexpected frame type"))
 
-    def _flush(self, raw_batch, pieces_batch, closes) -> None:
+    def _flush(self, raw_batch, pieces_batch, closes) -> None:  # symlint-torch: hot-path
         if raw_batch:
             arrivals = {sid: np.concatenate(ws) for sid, ws in
                         raw_batch.items() if sid in self.server}
