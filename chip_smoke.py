@@ -156,7 +156,10 @@ phases, each raising on failure:
    ``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CELL`` (the
    reference's own cell: xlstm-125m, decode_32k, the 2 x 16 x 16 mesh on
    ``meta``) in a child process, started before phase 10 (a) and read
-   here, prints ``OK`` and writes its JSON; (b) the
+   here, prints ``OK`` and writes its JSON with the collective inventory
+   (DTensor on a fake process group of 512, ``utils.collectives``): the
+   per-op counts, the wire bytes per device and the three roofline terms
+   are printed, and a ``null`` inventory fails the phase; (b) the
    same cell through ``dryrun.build_cell`` on a one-shard mesh, traced on
    ``meta`` and run on the card (``decode_step`` at batch 128 against a
    32768-token cell, parameters from seed 0): the bytes of the parameters,
@@ -2900,7 +2903,9 @@ class DryrunCLI:
 
 def dryrun_cli_phase(dry: DryrunCLI):
     """Phase 12 (a): the CLI printed ``OK`` and wrote the cell's JSON, with
-    ``null`` where the port has no partitioner."""
+    the collective inventory (``utils.collectives``: DTensor on a fake
+    process group of 512, run in the child, whose imports of
+    ``torch.distributed`` and ``DTensor`` fail the phase if they fail)."""
     t0 = time.perf_counter()
     rc, out, err = dry.result()
     waited = time.perf_counter() - t0
@@ -2910,14 +2915,28 @@ def dryrun_cli_phase(dry: DryrunCLI):
     if rc != 0 or not out.startswith(f"OK   {tag}"):
         raise AssertionError(f"dry-run CLI: rc {rc}\n{out}\n{err[-2000:]}")
     rec = json.loads((Path(dry.out_dir) / f"{tag}.json").read_text())
-    if rec["collectives"] is not None or rec["n_chips"] != 512:
+    roof, colls = rec["roofline"], rec["collectives"]
+    if (not colls or rec["n_chips"] != 512
+            or not isinstance(roof["collective_s"], float)
+            or not rec["cost"]["wire_bytes_per_dev"] > 0):
         raise AssertionError(f"dry-run JSON: {rec}")
     print(f"dry-run CLI on {tag}: OK in {dry.seconds:.1f} s (child process; "
-          f"phase 12 waited {waited:.1f} s for it); argument bytes per "
+          f"phase 12 waited {waited:.1f} s for it; first trace "
+          f"{rec['compile_seconds']} s, collective inventory "
+          f"{rec['inventory_seconds']} s); argument bytes per "
           f"device {rec['memory']['argument_bytes_per_dev']}, peak "
           f"{rec['memory']['peak_bytes_per_dev']}, FLOPs per device "
           f"{rec['cost']['flops_per_dev']} (analytic), "
           f"{rec['cost']['torch_flops_per_dev_raw']} (counted)", flush=True)
+    print(f"dry-run collectives on {tag} (512 ranks): "
+          + ", ".join(f"{op} {v['count']:.0f} x "
+                      f"({v['weighted_result_bytes']:.0f} B weighted)"
+                      for op, v in colls.items())
+          + f"; wire bytes per device {rec['cost']['wire_bytes_per_dev']}; "
+          f"roofline compute_s {roof['compute_s']}, memory_s "
+          f"{roof['memory_s']}, collective_s {roof['collective_s']} "
+          f"({roof['dominant']}); torch {rec['torch_version']}; not a "
+          f"partitioner's plan where: {rec['inventory_caveats']}", flush=True)
 
 
 def dryrun_card_phase(torch, dev):

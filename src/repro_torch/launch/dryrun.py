@@ -16,8 +16,16 @@ the port has no partitioner, so for each cell it:
      the batch rule resolves to, every width full -- inside
      ``FlopCounterMode`` and a dispatch mode that tracks the high-water mark
      of live tensor bytes;
-  4. costs the cell with the analytic model (``utils.flopcount``, the
-     reference's numbers) and the card's roofline (``utils.roofline``).
+  4. for a serving cell (prefill, decode), traces the step once more for
+     its collective inventory (``utils.collectives``, the counterpart of
+     the reference's ``utils/hlo`` parser): at the global shapes, its
+     parameters, inputs and decode state ``DTensor``s on ``meta`` laid out
+     by the same specs, inside a fake process group of the mesh's size
+     (``fake_world``), under the mesh rules, where ``constrain``
+     redistributes as the reference's sharding constraints do;
+  5. costs the cell with the analytic model (``utils.flopcount``, the
+     reference's numbers) and the card's roofline (``utils.roofline``),
+     the wire bytes included.
 
 What the fields hold:
   * ``memory.argument_bytes_per_dev`` / ``output_bytes_per_dev``: exact, from
@@ -41,14 +49,36 @@ What the fields hold:
   * ``constraints``: how many ``constrain`` calls the trace resolved at
     each site's logical names (one batch shard, so the specs themselves
     are not kept: a batch dim resolves differently at the global shape);
-  * ``collectives`` and ``cost.wire_bytes_per_dev``: ``null`` (no
-    partitioner, so no collective inventory); ``roofline.collective_s``
-    likewise;
-  * ``compile_seconds``: the trace's seconds.
+  * ``collectives``: per op (the reference's names), ``count`` and
+    ``weighted_result_bytes``, from the second trace; it runs every loop
+    iteration, so no trip-count multiplier is needed, and it allocates
+    nothing.  ``cost.wire_bytes_per_dev`` is ``collective_wire_bytes`` of
+    it, and ``roofline.collective_s`` those bytes over NVLink.  A train
+    cell (with or without ``--grad-compress``) keeps ``null`` in these
+    three: the training loss's backward does not trace on ``DTensor``s yet
+    (``models/transformer.py``'s ``chunked_xent`` gathers the target logit
+    from vocab-sharded logits).  ``xla_*_raw`` stay ``null``: there is no
+    XLA and no compiled program to read;
+  * ``inventory_replicated``: the ops ``DTensor`` could not run on their
+    inputs' placements, which the inventory ran on whole values (their
+    inputs gathered, counted), and ``inventory_gathered`` the ops whose
+    result ``DTensor`` laid out in a way no ``P`` can say, gathered over
+    those mesh dims (counted), by op (``utils.collectives._NoPlan``);
+  * ``inventory_caveats``: why the inventory is not a partitioner's plan,
+    empty where it is: the two above, and an MoE cell's groups run one by
+    one (ROADMAP C25);
+  * ``torch_version``: the torch that traced the cell.  The inventory is
+    ``DTensor``'s plan, and ``DTensor``'s rules change between releases:
+    compare inventories of one version only;
+  * ``compile_seconds``: the first trace's seconds; ``inventory_seconds``
+    the second's (``null`` where there is none).
 
 The dry run allocates nothing on any device: a tensor of more than one
 element made anywhere but ``meta`` during the trace fails the cell.  Any
-spec that does not divide its dim, or a trace that raises, fails the cell.
+spec that does not divide its dim, or a trace that raises (the inventory's
+included: a collective it cannot name, a layout ``DTensor`` cannot hold),
+fails the cell; no field is quietly left ``null``.  The inventory needs
+no card: ``--mesh multipod`` runs it on the CPU.
 
 Usage (from the repository root, ``PYTHONPATH=src``):
   python -m repro_torch.launch.dryrun --arch mixtral-8x7b --shape decode_32k
@@ -159,6 +189,9 @@ class Cell:
     alias: Callable                  # (args, out) -> alias bytes per device
     accum_steps: int = 1
     grad_compress: bool = False
+    # (DeviceMesh) -> the step's arguments at the global shapes as DTensors
+    # on ``meta`` (the collective inventory); None for a train cell
+    dtensor_args: Optional[Callable] = None
 
     def tensors(self):
         """The tensors of the trace's arguments (a model's parameters)."""
@@ -202,10 +235,11 @@ def build_cell(cfg, shape_name: str, mesh, *, device="meta",
     from repro_torch.models import decode_step, init_params, prefill
     from repro_torch.models.params import param_shapes
     from repro_torch.sharding.layout import NamedSharding
-    from repro_torch.sharding.partition import logical_to_spec
+    from repro_torch.sharding.partition import P, logical_to_spec
     from repro_torch.train.steps import (init_error_fb, init_train_state,
                                          make_compressed_train_step,
                                          make_train_step)
+    from repro_torch.utils.collectives import distribute_params, to_dtensor
 
     dev = resolve_device(device)
     shape = SHAPES[shape_name]
@@ -287,11 +321,18 @@ def build_cell(cfg, shape_name: str, mesh, *, device="meta",
                                prefix_embeds=extras.get("prefix_embeds"),
                                enc_frames=extras.get("enc_frames"))
 
+        def dtensor_args(dm):
+            return (distribute_params(params_abs, dm, mesh),
+                    to_dtensor(tokens_abs, dm, in_sh[0].spec),
+                    {k: to_dtensor(v, dm, in_sh[1][k].spec)
+                     for k, v in extras_abs.items()})
+
         return Cell(cfg, shape_name, mesh, "prefill", dev, prefill_fn,
                     (params_on_device(), tokens,
                      _local(extras_abs, b_local, dev, gen, cfg.vocab)),
                     rules, b_local, 1,
-                    arg_b, out_b, lambda args, out: 0)
+                    arg_b, out_b, lambda args, out: 0,
+                    dtensor_args=dtensor_args)
 
     state_abs, token_abs = spec["args"]
     state_sh, state_leaves = in_sh[0], specs.decode_state_leaves(state_abs)
@@ -319,16 +360,55 @@ def build_cell(cfg, shape_name: str, mesh, *, device="meta",
         return _layout_bytes({k: state_sh[k] for k in kept},
                              {k: state_leaves[k] for k in kept})
 
+    def dtensor_args(dm):
+        def leaf(name, t, block):
+            # a superblock's piece of a stacked leaf: the spec less its
+            # stacked dim.  Where the rules shard that dim (a stacked sLSTM
+            # ``c`` takes the mLSTM's rank-4 rule, so "batch" lands on the
+            # stack when the data axis divides n_blocks: ROADMAP C26, no
+            # production cell), each piece is whole over those axes
+            spec = state_sh[name].spec
+            return to_dtensor(t, dm, spec if block is None else P(*spec[1:]))
+
+        return (distribute_params(params_abs, dm, mesh),
+                specs.map_decode_state(state_abs, leaf),
+                to_dtensor(token_abs, dm, in_sh[1].spec))
+
     return Cell(cfg, shape_name, mesh, "decode", dev, decode_fn,
                 (params_on_device(), state, token),
                 rules, b_local, 1,
-                arg_b, logits_b + state_b, in_place)
+                arg_b, logits_b + state_b, in_place,
+                dtensor_args=dtensor_args)
+
+
+def collective_inventory(cell: Cell, device_type: str = "cuda"):
+    """The ``utils.collectives.CollectiveCounter`` of ``cell``'s step on
+    its mesh (``None`` for a train cell): the step at the global shapes,
+    its parameters, inputs and decode state ``DTensor``s on ``meta`` laid
+    out by the dry run's specs, run once inside ``fake_world(cell.mesh)``
+    under the mesh rules.  ``.records`` are the collectives,
+    ``.replicated`` the ops run on whole values, ``.gathered`` those whose
+    result was gathered where no ``P`` says its layout.  A mesh of one
+    device issues no collective: its inventory is empty, and nothing is
+    traced."""
+    from repro_torch.utils.collectives import (CollectiveCounter,
+                                               count_collectives, fake_world)
+
+    if cell.dtensor_args is None:
+        return None
+    if np.asarray(cell.mesh.devices).size == 1:
+        return CollectiveCounter()
+    with fake_world(cell.mesh, device_type) as dm:
+        return count_collectives(cell.fn, cell.dtensor_args(dm), cell.mesh,
+                                 **cell.rules)[1]
 
 
 def measure_cell(cell: Cell) -> Dict[str, Any]:
-    """Trace ``cell`` once under its mesh's rules; the result record."""
+    """Trace ``cell`` once under its mesh's rules, then (a serving cell)
+    once more for its collectives; the result record."""
     from repro_torch.models import count_params
     from repro_torch.sharding.ctx import recording, use_mesh_rules
+    from repro_torch.utils.collectives import collective_wire_bytes, per_op
     from repro_torch.utils.flopcount import analytic_cell
     from repro_torch.utils.roofline import roofline_terms
 
@@ -350,10 +430,26 @@ def measure_cell(cell: Cell) -> Dict[str, Any]:
         t.untyped_storage() for t in _tensors(out)) if st._cdata not in known}
     del out
 
+    t1 = time.perf_counter()
+    counter = collective_inventory(cell)
+    inventory_seconds = time.perf_counter() - t1
+    colls = None if counter is None else counter.records
+    wire = None if colls is None else collective_wire_bytes(colls)
+    caveats = None
+    if counter is not None:
+        caveats = [f"run on whole values: {op} x {n}"
+                   for op, n in sorted(counter.replicated.items())]
+        caveats += [f"result gathered where no P says its layout: {op} x {n}"
+                    for op, n in sorted(counter.gathered.items())]
+        if cfg.n_experts and cell.kind == "prefill":
+            caveats.append("C25: the MoE groups run one by one, each "
+                           "group's slice and combine buffer gathered")
+
     n_chips = int(np.asarray(mesh.devices).size)
     model_shards = _sizes(mesh).get("model", 1)
     ana = analytic_cell(cfg, cell.shape_name, n_chips, model_shards)
-    terms = roofline_terms(ana["flops_per_dev"], ana["hbm_bytes_per_dev"])
+    terms = roofline_terms(ana["flops_per_dev"], ana["hbm_bytes_per_dev"],
+                           wire)
     model_flops = ana["model_flops"]
     temp = live.peak - sum(made.values())
     return {
@@ -368,6 +464,8 @@ def measure_cell(cell: Cell) -> Dict[str, Any]:
         "accum_steps": cell.accum_steps,
         "device": str(cell.device),
         "compile_seconds": round(seconds, 1),
+        "inventory_seconds": (None if colls is None
+                              else round(inventory_seconds, 1)),
         "memory": {
             "argument_bytes_per_dev": cell.argument_bytes,
             "output_bytes_per_dev": cell.output_bytes,
@@ -379,7 +477,7 @@ def measure_cell(cell: Cell) -> Dict[str, Any]:
         "cost": {
             "flops_per_dev": ana["flops_per_dev"],
             "hbm_bytes_per_dev": ana["hbm_bytes_per_dev"],
-            "wire_bytes_per_dev": None,
+            "wire_bytes_per_dev": wire,
             "torch_flops_per_dev_raw": (flops.get_total_flops()
                                         / (model_shards * cell.shards_traced)),
             "xla_flops_per_dev_raw": None,
@@ -387,7 +485,15 @@ def measure_cell(cell: Cell) -> Dict[str, Any]:
         },
         "constraints": dict(sorted(Counter(
             " ".join(str(n) for n in site[0]) for site in sites).items())),
-        "collectives": None,
+        "collectives": None if colls is None else per_op(colls),
+        "inventory_replicated": (
+            None if counter is None else dict(sorted(
+                counter.replicated.items()))),
+        "inventory_gathered": (
+            None if counter is None else dict(sorted(
+                counter.gathered.items()))),
+        "inventory_caveats": caveats,
+        "torch_version": torch.__version__,
         "roofline": terms,
         "model_flops": model_flops,
         "useful_flops_ratio": (
@@ -471,12 +577,15 @@ def main(argv=None):
                            kv_int8=args.kv_int8)
             (out_dir / f"{tag}.json").write_text(json.dumps(res, indent=2))
             m, r = res["memory"], res["roofline"]
+            caveats = "; ".join(res["inventory_caveats"] or ())
             print(
                 f"OK   {tag}: peak/dev={m['peak_bytes_per_dev']/2**30:.2f}GiB "
                 f"compute={_ms(r['compute_s'])} memory={_ms(r['memory_s'])} "
                 f"collective={_ms(r['collective_s'])} "
                 f"dominant={r['dominant']} "
-                f"(traced in {res['compile_seconds']}s)", flush=True)
+                f"(traced in {res['compile_seconds']}s)"
+                + (f"; inventory not a plan: {caveats}" if caveats else ""),
+                flush=True)
         except Exception as e:  # noqa: BLE001 -- report and continue the sweep
             failures += 1
             (out_dir / f"{tag}.FAILED.txt").write_text(traceback.format_exc())

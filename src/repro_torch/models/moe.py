@@ -74,7 +74,9 @@ def _per_group(params, cfg, xg, gi, gv, cap: int):
     # is dropped (written to a spare slot ``cap`` that is cut off)
     slot = pos.gather(-1, gi[..., None].long())[..., 0].long()  # (g, k)
     slot = torch.clamp_max(slot, cap)
-    comb = torch.zeros((g, e, cap + 1), dtype=torch.float32, device=xg.device)
+    # made from ``gv`` (f32 on its device), so that a DTensor trace writes
+    # into a DTensor (``utils.collectives``)
+    comb = gv.new_zeros((g, e, cap + 1), dtype=torch.float32)
     comb[torch.arange(g, device=xg.device)[:, None], gi.long(), slot] = gv
     comb = comb[..., :cap]                                     # (g, e, cap)
     disp = (comb > 0).to(xg.dtype)

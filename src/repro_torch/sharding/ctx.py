@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import sys
 from typing import List, Optional, Tuple
 
 from repro_torch.sharding.partition import logical_to_spec
@@ -60,7 +61,8 @@ def recording():
 
 def constrain(x, *logical: Optional[str]):
     """The logical-axis constraint on ``x``: resolved and recorded when a
-    mesh context is active; ``x`` itself either way."""
+    mesh context is active; ``x`` itself either way, but a ``DTensor``,
+    which comes back redistributed to the resolved spec."""
     ctx = _CTX.get()
     if ctx is None:
         return x
@@ -70,4 +72,12 @@ def constrain(x, *logical: Optional[str]):
     sites = _RECORDER.get()
     if sites is not None:
         sites.append((tuple(logical), tuple(x.shape), spec))
+    # a DTensor exists only once its module is imported: plain runs never
+    # import it here
+    dt = sys.modules.get("torch.distributed.tensor")
+    if dt is not None and isinstance(x, dt.DTensor):
+        from repro_torch.utils.collectives import placements
+
+        return x.redistribute(x.device_mesh, placements(
+            spec, x.device_mesh.mesh_dim_names))
     return x

@@ -2,8 +2,9 @@
 
 The counterpart of ``repro.utils.hlo``'s ``HW`` and ``roofline_terms``.  The
 reference's HLO parser (its collective inventory from the compiled program's
-text) reads XLA's output only and has no counterpart: the port has no
-partitioner, so a cell's collective traffic is not known (``wire=None``).
+text) has its counterpart in ``utils.collectives``, which counts the
+collectives a ``DTensor`` trace issues; the dry run passes their wire bytes
+here for a serving cell.  A train cell has no inventory yet (``wire=None``).
 """
 from __future__ import annotations
 

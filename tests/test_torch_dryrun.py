@@ -7,7 +7,9 @@ the sum over the reference's shard shapes; the CLI (``OK`` and its JSON,
 ``FAIL`` and "1 cells failed"); a reduced train cell and a reduced prefill
 cell through ``build_cell``/``measure_cell``; and the same decode cell on a
 one-shard mesh traced on ``meta`` and run on the CPU: the FLOPs counted
-equal, the real arguments' bytes the dry run's.
+equal, the real arguments' bytes the dry run's.  Serving cells carry the
+collective inventory (``utils.collectives``; train cells ``null``), and it
+leaves every field of the first trace as it was.
 """
 import _torch_threads  # noqa: F401  (first: torch's CPU threads)
 import json
@@ -18,6 +20,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import _torch_sharding_ref as ref
 import repro.models as ref_models
@@ -50,8 +53,13 @@ def _ref_argument_bytes(arch, shape, kind):
                                  kind)
 
 
-def test_reference_cell():
-    res = dryrun.run_cell(ARCH, SHAPE, MESH)
+@pytest.fixture(scope="module")
+def reference_cell():
+    return dryrun.run_cell(ARCH, SHAPE, MESH)
+
+
+def test_reference_cell(reference_cell):
+    res = reference_cell
     cfg = REF_ARCHS[ARCH]
     ana = ref_flop.analytic_cell(cfg, SHAPE, 512, 16)
     assert res["n_chips"] == 512 and res["kind"] == "decode"
@@ -75,10 +83,60 @@ def test_reference_cell():
     assert res["cost"]["torch_flops_per_dev_raw"] > 0
     assert res["constraints"] == {"batch None embed": 1,
                                   "batch seq vocab": 1}
-    assert res["collectives"] is None
-    assert res["cost"]["wire_bytes_per_dev"] is None
-    assert res["roofline"]["collective_s"] is None
-    assert res["roofline"]["dominant"] in ("compute", "memory")
+    # the collective inventory on the 512 ranks: per op as the reference
+    # shapes it, its wire bytes, the roofline's collective term
+    colls = res["collectives"]
+    assert colls and set(colls) <= {"all-reduce", "all-gather",
+                                    "reduce-scatter", "all-to-all"}
+    for v in colls.values():
+        assert v["count"] >= 1 and v["weighted_result_bytes"] > 0
+    wire = res["cost"]["wire_bytes_per_dev"]
+    assert wire > 0 and res["inventory_seconds"] > 0
+    roof = res["roofline"]
+    assert roof["collective_s"] == wire / 900e9
+    assert roof == ref_roofline(res, wire)
+    assert roof["dominant"] in ("compute", "memory", "collective")
+    assert roof[roof["dominant"] + "_s"] == max(
+        roof["compute_s"], roof["memory_s"], roof["collective_s"])
+    # what it is not: a partitioner's plan where ops ran on whole values
+    assert res["inventory_caveats"] == [
+        f"run on whole values: {op} x {n}"
+        for op, n in res["inventory_replicated"].items()] + [
+        f"result gathered where no P says its layout: {op} x {n}"
+        for op, n in res["inventory_gathered"].items()]
+    assert res["inventory_caveats"]
+    assert res["torch_version"] == torch.__version__
+
+
+def _no_inventory(monkeypatch):
+    """The dry run as it was before the inventory: no second trace."""
+    monkeypatch.setattr(dryrun, "collective_inventory", lambda cell: None)
+
+
+def test_reference_cell_inventory(reference_cell, monkeypatch):
+    """The inventory leaves every field of the reference's cell as it is
+    without it; without it the inventory's fields are ``null``."""
+    _no_inventory(monkeypatch)
+    off = dryrun.run_cell(ARCH, SHAPE, MESH)
+    for k in ("memory", "constraints", "model_flops", "n_chips", "n_params",
+              "batch_per_shard", "useful_flops_ratio"):
+        assert reference_cell[k] == off[k], k
+    for k in ("flops_per_dev", "hbm_bytes_per_dev", "torch_flops_per_dev_raw"):
+        assert reference_cell["cost"][k] == off["cost"][k], k
+    assert off["collectives"] is None and off["inventory_seconds"] is None
+    assert off["cost"]["wire_bytes_per_dev"] is None
+    assert off["roofline"]["collective_s"] is None
+    assert off["roofline"]["dominant"] in ("compute", "memory")
+    assert off["inventory_caveats"] is None
+
+
+def ref_roofline(res, wire):
+    """The roofline terms of ``res`` with ``wire`` bytes on the wire, from
+    the port's card constants (``utils.roofline``)."""
+    from repro_torch.utils.roofline import roofline_terms
+
+    return roofline_terms(res["cost"]["flops_per_dev"],
+                          res["cost"]["hbm_bytes_per_dev"], wire)
 
 
 def test_cli_ok_and_json(tmp_path, capsys):
@@ -86,11 +144,13 @@ def test_cli_ok_and_json(tmp_path, capsys):
                  str(tmp_path)])
     out = capsys.readouterr().out
     assert out.startswith(f"OK   {ARCH}_{SHAPE}_{MESH}: peak/dev="), out
-    assert "collective=n/a" in out
     rec = json.loads((tmp_path / f"{ARCH}_{SHAPE}_{MESH}.json").read_text())
+    assert f"collective={rec['roofline']['collective_s'] * 1e3:.2f}ms" in out
+    assert "inventory not a plan: " in out
     assert rec["arch"] == ARCH and rec["mesh"] == MESH
     assert rec["cost"]["xla_flops_per_dev_raw"] is None
-    assert rec["collectives"] is None
+    assert rec["cost"]["xla_bytes_per_dev_raw"] is None
+    assert rec["collectives"] and rec["cost"]["wire_bytes_per_dev"] > 0
 
 
 def test_cli_unknown_arch_fails(tmp_path):
@@ -155,6 +215,42 @@ def test_reduced_cells(arch, shape):
     assert mem["temp_bytes_per_dev"] > 0
     assert res["cost"]["torch_flops_per_dev_raw"] > 0
     assert res["device"] == "meta" and res["kind"] == cell.kind
+    if cell.kind == "train":  # no inventory of a train cell yet
+        assert res["collectives"] is None
+        assert res["cost"]["wire_bytes_per_dev"] is None
+        assert res["roofline"]["collective_s"] is None
+        assert res["inventory_seconds"] is None
+    else:
+        assert res["collectives"]["all-gather"]["count"] > 0
+        assert res["cost"]["wire_bytes_per_dev"] > 0
+        assert res["roofline"]["collective_s"] > 0
+        moe = any(c.startswith("C25:") for c in res["inventory_caveats"])
+        assert moe == bool(cfg.n_experts and cell.kind == "prefill")
+
+
+@pytest.mark.parametrize("arch,shape", [("olmoe-1b-7b", "decode_32k"),
+                                        ("paligemma-3b", "prefill_32k"),
+                                        ("codeqwen1.5-7b", "train_4k")])
+def test_inventory_leaves_the_first_trace_alone(arch, shape, monkeypatch):
+    """With the inventory and without it: the memory, FLOP and constraint
+    fields bit for bit equal; without it the inventory's fields are
+    ``null``, as before it existed."""
+    cfg = get_config(arch).reduced()
+    mesh = make_test_mesh((2, 2), device="meta")
+    on = dryrun.measure_cell(dryrun.build_cell(cfg, shape, mesh))
+    _no_inventory(monkeypatch)
+    off = dryrun.measure_cell(dryrun.build_cell(cfg, shape, mesh))
+    assert on["memory"] == off["memory"]
+    assert on["constraints"] == off["constraints"]
+    for k in ("flops_per_dev", "hbm_bytes_per_dev", "torch_flops_per_dev_raw",
+              "xla_flops_per_dev_raw", "xla_bytes_per_dev_raw"):
+        assert on["cost"][k] == off["cost"][k], k
+    for k in ("compute_s", "memory_s"):
+        assert on["roofline"][k] == off["roofline"][k], k
+    assert off["collectives"] is None and off["inventory_seconds"] is None
+    assert off["cost"]["wire_bytes_per_dev"] is None
+    assert off["roofline"]["collective_s"] is None
+    assert (on["collectives"] is None) == (shape == "train_4k")
 
 
 def test_meta_count_equals_a_real_run():
@@ -181,10 +277,11 @@ def test_meta_count_equals_a_real_run():
     assert got_real["device"] == "cpu" and real.local_batch == 128
 
 
-def test_kv_int8_and_no_sp_flags():
+def test_kv_int8_and_no_sp_flags(monkeypatch):
     """``--kv-int8`` swaps the KV caches for int8 codes and bf16 scales
     (fewer argument bytes); ``--no-sp`` records the cell as without
-    sequence parallelism."""
+    sequence parallelism.  (The first trace's fields only: no inventory.)"""
+    _no_inventory(monkeypatch)
     plain = dryrun.run_cell("mixtral-8x7b", "decode_32k", "pod")
     quant = dryrun.run_cell("mixtral-8x7b", "decode_32k", "pod",
                             kv_int8=True, no_sp=True)

@@ -611,8 +611,9 @@ def test_port_imports_no_jax():
     scenario, one sharded fleet run, one ABBA encode, one reduced serve of
     olmoe-1b-7b, xlstm-125m and jamba-1.5-large-398b each, the ``data``
     and ``kernels`` packages, and the sharding rules, the specs, the dry
-    run (one cell on ``meta``), elastic resume and the cost model leave jax
-    and every module of the JAX package out of ``sys.modules``."""
+    run (one cell on ``meta``, with its collective inventory: DTensor on a
+    fake process group), elastic resume and the cost model leave jax and
+    every module of the JAX package out of ``sys.modules``."""
     code = (
         "import sys, numpy as np\n"
         "import repro_torch, repro_torch.core\n"
@@ -663,8 +664,8 @@ def test_port_imports_no_jax():
         "import repro_torch.launch.specs, repro_torch.launch.elastic\n"
         "import repro_torch.utils.flopcount, repro_torch.utils.roofline\n"
         "from repro_torch.launch.dryrun import run_cell\n"
-        "assert run_cell('xlstm-125m', 'decode_32k', 'multipod')"
-        "['kind'] == 'decode'\n"
+        "cell = run_cell('xlstm-125m', 'decode_32k', 'multipod')\n"
+        "assert cell['kind'] == 'decode' and cell['collectives']\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print('BAD', bad)\n"
